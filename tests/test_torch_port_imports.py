@@ -1,0 +1,46 @@
+"""The port imports neither JAX nor the JAX package.
+
+Every module of the port is imported in a fresh interpreter in which
+``import jax`` and ``import multi_camera_3d_pose_estimation_tpu`` fail.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CODE = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["multi_camera_3d_pose_estimation_tpu"] = None
+import multi_camera_3d_pose_estimation_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", CODE], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 15  # every module was imported
+
+
+def test_chip_smoke_imports_without_jax():
+    """chip_smoke.py's imports, minus the card: it must also stay JAX-free."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['multi_camera_3d_pose_estimation_tpu'] = None; "
+            "import importlib.util as u; "
+            "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py'); "
+            "m = u.module_from_spec(s); s.loader.exec_module(m)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
