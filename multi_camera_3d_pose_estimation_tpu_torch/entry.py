@@ -1,25 +1,21 @@
-"""Build the headline block pipeline: HRNet 2D + top-2 DLT 3D over a
-synthetic camera rig.
+"""Build the block pipeline: HRNet or Swin 2D + top-2 DLT 3D over a synthetic
+camera rig.
 
-Counterpart of the JAX repo's ``__graft_entry__._build_pipeline`` (HRNet
-family, no detector, one device).  The rig is the same: C cameras with
-f = 600 px at the frame centre, yawed from -20 to +20 degrees, translated
-(40·c − 20, 0, 10·c), no distortion.
+Counterpart of the JAX repo's ``__graft_entry__._build_pipeline`` (HRNet and
+Swin families, no detector, one device).  The rig is the same: C cameras
+with f = 600 px at the frame centre, yawed from -20 to +20 degrees,
+translated (40·c − 20, 0, 10·c), no distortion.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
-import torch
 
-from .models.convert import load_hrnet_from_flax
-from .models.hrnet import HRNet
+from .models.registry import build_model
 from .models.topdown import TopDownEstimator
 from .parallel.pipeline import ShardedPosePipeline
 
-__all__ = ["build_pipeline", "synthetic_rig", "init_hrnet_"]
+__all__ = ["build_pipeline", "synthetic_rig"]
 
 
 def synthetic_rig(n_cams: int, H: int, W: int) -> dict:
@@ -35,43 +31,21 @@ def synthetic_rig(n_cams: int, H: int, W: int) -> dict:
             "T": np.asarray(Ts, np.float32), "dist": np.zeros((n_cams, 5), np.float32)}
 
 
-@torch.no_grad()
-def init_hrnet_(model: HRNet, generator: torch.Generator) -> HRNet:
-    """Random weights from ``generator``, drawn on the CPU: convs
-    N(0, 1/fan_in) (flax's LeCun scale), BatchNorm at identity, zero head bias."""
-    for name, p in model.named_parameters():
-        if p.dim() == 4:
-            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-            w = torch.randn(p.shape, generator=generator) / math.sqrt(fan_in)
-            p.copy_(w.to(p.device))
-        elif name.endswith("BatchNorm_0.weight"):
-            p.fill_(1.0)
-        else:
-            p.zero_()
-    for name, b in model.named_buffers():
-        if name.endswith("running_var"):
-            b.fill_(1.0)
-        else:
-            b.zero_()
-    return model
-
-
 def build_pipeline(cfg, input_size, frames_shape, device="cuda", variables=None,
-                   seed: int = 0) -> ShardedPosePipeline:
-    """The C-camera HRNet 2D+3D block pipeline on ``device``, bf16, with the
-    stage-1 Bottleneck and heatmap decode kernels on (as on the accelerator).
+                   seed: int = 0, family: str = "hrnet") -> ShardedPosePipeline:
+    """The C-camera 2D+3D block pipeline on ``device``, bf16, with the
+    kernels on (as on the accelerator): HRNet's stage-1 Bottleneck and the
+    heatmap decode, or, for ``family="swin"``, the whole-SwinBlock kernels
+    and the heatmap decode.
 
-    - ``cfg``: `models.hrnet.HRNET_W32`-style config; ``input_size`` (w, h).
+    - ``cfg``: `models.hrnet.HRNET_W32` or `models.swin.SWIN_B`-style
+      config; ``input_size`` (w, h).
     - ``frames_shape``: (T, C, H, W, 3) of the blocks it will run.
-    - ``variables``: a flax HRNet ``{"params", "batch_stats"}`` tree of numpy
+    - ``variables``: a flax ``{"params", "batch_stats"}`` tree of numpy
       arrays; None draws random weights from ``torch.Generator`` seed ``seed``.
     """
     T, C, H, W, _ = frames_shape
-    model = HRNet(num_joints=17, cfg=cfg, device=device)
-    if variables is None:
-        init_hrnet_(model, torch.Generator().manual_seed(seed))
-    else:
-        load_hrnet_from_flax(model, variables)
+    model = build_model(family, cfg, device, variables, seed)
     est = TopDownEstimator(model, input_size=input_size, use_fused_decode=True,
-                           use_fused_stage1=True, device=device)
+                           use_fused_stage1=family == "hrnet", device=device)
     return ShardedPosePipeline(est, synthetic_rig(C, H, W), device=device)

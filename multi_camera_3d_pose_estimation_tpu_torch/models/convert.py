@@ -1,9 +1,14 @@
-"""Carry HRNet weights from a flax variables tree to the port's ``state_dict``.
+"""Carry HRNet and Swin weights from a flax variables tree to the port's
+``state_dict``.
 
-The port's submodules carry the flax auto-names, so the map is mechanical:
+The port's submodules carry the flax names, so the map is mechanical:
 
-- ``<path>/kernel`` (kh, kw, cin, cout) -> ``<path>.weight`` (cout, cin, kh, kw)
-- ``<path>/bias`` -> ``<path>.bias``; BatchNorm ``scale`` -> ``weight``
+- conv ``<path>/kernel`` (kh, kw, cin, cout) -> ``<path>.weight``
+  (cout, cin, kh, kw); Swin's ``deconv_*/kernel`` -> (cin, cout, kh, kw), the
+  ``conv_transpose2d`` layout; a Dense ``kernel`` (in, out) -> ``weight``
+  (out, in) (Swin only: HRNet has no Dense layer);
+- ``<path>/bias`` -> ``<path>.bias``; BatchNorm and LayerNorm ``scale`` ->
+  ``weight``; Swin's ``bias_table`` stays ``bias_table``;
 - batch stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``, plus
   ``num_batches_tracked`` = 0 for every BatchNorm.
 
@@ -16,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["hrnet_state_dict_from_flax", "load_hrnet_from_flax"]
+__all__ = ["hrnet_state_dict_from_flax", "load_hrnet_from_flax", "swin_state_dict_from_flax",
+           "load_swin_from_flax"]
 
 _PARAM_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
@@ -30,21 +36,18 @@ def _leaves(tree, prefix=()):
             yield prefix + (str(key),), value
 
 
-def hrnet_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """``{"params", "batch_stats"}`` tree of numpy arrays -> the port's state_dict."""
+def _state_dict_from_flax(variables: dict, kernel, param_names) -> dict[str, torch.Tensor]:
     leftover = set(variables) - {"params", "batch_stats"}
     if leftover:
         raise KeyError(f"unexpected variable collections: {sorted(leftover)}")
     sd: dict[str, torch.Tensor] = {}
     for path, value in _leaves(variables["params"]):
-        name = _PARAM_NAMES.get(path[-1])
+        name = param_names.get(path[-1])
         if name is None:
             raise KeyError(f"unmapped parameter {'/'.join(path)}")
         arr = np.asarray(value, np.float32)
         if path[-1] == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{'/'.join(path)}: expected a 4-d conv kernel, got {arr.shape}")
-            arr = arr.transpose(3, 2, 0, 1)
+            arr = kernel(path, arr)
         sd[".".join(path[:-1] + (name,))] = torch.from_numpy(arr.copy())
     for path, value in _leaves(variables.get("batch_stats", {})):
         name = _STAT_NAMES.get(path[-1])
@@ -55,9 +58,35 @@ def hrnet_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def load_hrnet_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
-    """Load a flax HRNet variables tree into the port's `HRNet`, strictly."""
-    sd = hrnet_state_dict_from_flax(variables)
+def _hrnet_kernel(path, arr):
+    if arr.ndim != 4:
+        raise ValueError(f"{'/'.join(path)}: expected a 4-d conv kernel, got {arr.shape}")
+    return arr.transpose(3, 2, 0, 1)
+
+
+def _swin_kernel(path, arr):
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim != 4:
+        raise ValueError(f"{'/'.join(path)}: expected a 2-d or 4-d kernel, got {arr.shape}")
+    if path[-2].startswith("deconv_"):
+        return arr.transpose(2, 3, 0, 1)
+    return arr.transpose(3, 2, 0, 1)
+
+
+def hrnet_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` tree of numpy arrays -> the port's state_dict."""
+    return _state_dict_from_flax(variables, _hrnet_kernel, _PARAM_NAMES)
+
+
+def swin_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """A flax `SwinPose` ``{"params", "batch_stats"}`` tree of numpy arrays ->
+    the port's `models.swin.SwinPose` state_dict."""
+    return _state_dict_from_flax(variables, _swin_kernel,
+                                 dict(_PARAM_NAMES, bias_table="bias_table"))
+
+
+def _load_strict(model: torch.nn.Module, sd: dict) -> torch.nn.Module:
     want = model.state_dict()
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
@@ -70,3 +99,13 @@ def load_hrnet_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Mo
                              f"{tuple(want[key].shape)}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def load_hrnet_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Load a flax HRNet variables tree into the port's `HRNet`, strictly."""
+    return _load_strict(model, hrnet_state_dict_from_flax(variables))
+
+
+def load_swin_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Load a flax SwinPose variables tree into the port's `SwinPose`, strictly."""
+    return _load_strict(model, swin_state_dict_from_flax(variables))

@@ -1,7 +1,7 @@
-"""Top-down 2D pose pipeline: bbox -> crop -> HRNet -> decode -> image space.
+"""Top-down 2D pose pipeline: bbox -> crop -> heatmap model -> decode -> image space.
 
-Counterpart of the JAX package's ``models/topdown.py`` (heatmap decode,
-without flip-TTA and SimCC in this slice).  Layouts follow the JAX package:
+Counterpart of the JAX package's ``models/topdown.py`` (heatmap decode for
+the HRNet and Swin families, without flip-TTA and SimCC).  Layouts follow the JAX package:
 frames (B, H, W, 3), crops (B, in_h, in_w, 3), heatmaps (B, K, h, w),
 keypoints (B, K, 3) = (x_px, y_px, score), gaussians (B, K, 6) =
 [mean_x, mean_y, var_x, cov_xy, cov_xy, var_y] in image pixels.
@@ -23,6 +23,7 @@ import torch
 from ..ops.fused_decode import fused_heatmap_decode
 from ..ops.heatmap_decode import heatmap_argmax_decode
 from ..ops.moments import heatmap_moments
+from .swin import SwinPose
 
 __all__ = [
     "IMAGENET_MEAN",
@@ -102,15 +103,17 @@ def preprocess_crops(frames, bboxes, input_size, bbox_padding: float = 1.25):
 
 
 class TopDownEstimator:
-    """Batched top-down 2D pose estimator (HRNet heatmaps).
+    """Batched top-down 2D pose estimator (heatmap models).
 
-    - ``model``: the port's `HRNet`, weights loaded, on ``device``.
+    - ``model``: the port's `HRNet` or `SwinPose`, weights loaded, on
+      ``device``.
     - ``input_size``: (width, height) of the crop fed to the model.
     - ``use_fused_decode``: decode through the CUDA kernel
       (`ops.fused_heatmap_decode`) instead of `heatmap_argmax_decode` +
       `heatmap_moments`.
-    - ``use_fused_stage1``: run stage 1 through the Bottleneck kernel
-      (`ops.make_fused_stage1`).
+    - ``use_fused_stage1``: run HRNet's stage 1 through the Bottleneck
+      kernel (`ops.make_fused_stage1`).  A `SwinPose` picks its kernels
+      itself (``use_pallas_attention``).
     """
 
     def __init__(self, model, input_size=(192, 256), heatmap_threshold: float = 0.01,
@@ -118,12 +121,15 @@ class TopDownEstimator:
                  use_fused_stage1: bool = False, device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        self.family = "swin" if isinstance(model, SwinPose) else "hrnet"
         self.input_size = tuple(input_size)
         self.heatmap_threshold = float(heatmap_threshold)
         self.bbox_padding = float(bbox_padding)
         self.use_fused_decode = bool(use_fused_decode)
         self.fused_stage1 = None
         if use_fused_stage1:
+            if self.family != "hrnet":
+                raise ValueError("use_fused_stage1 applies to HRNet only")
             from ..ops.bottleneck import make_fused_stage1
 
             self.fused_stage1 = make_fused_stage1(self.model)
@@ -145,14 +151,21 @@ class TopDownEstimator:
 def _predict(est: TopDownEstimator, frames: torch.Tensor, bboxes: torch.Tensor) -> dict:
     in_w, in_h = est.input_size
     crops, scale, offset = preprocess_crops(frames, bboxes, est.input_size, est.bbox_padding)
-    # (B, in_h, in_w, 3) viewed as NCHW is channels_last: no copy.
-    heat = est.model(crops.permute(0, 3, 1, 2), fused_stage1=est.fused_stage1)  # (B, K, h, w)
+    heat = _heatmaps(est, crops)  # (B, K, h, w) f32
     if est.use_fused_decode:
         moments, xy_hm, score = fused_heatmap_decode(heat, threshold=est.heatmap_threshold)
     else:
         xy_hm, score = heatmap_argmax_decode(heat)
         moments = heatmap_moments(heat, threshold=est.heatmap_threshold)
     return _pushforward(in_h / heat.shape[-2], xy_hm, score, moments, scale, offset)
+
+
+def _heatmaps(est: TopDownEstimator, crops: torch.Tensor) -> torch.Tensor:
+    """The model on crops (B, in_h, in_w, 3) -> heatmaps (B, K, h, w)."""
+    if est.family == "swin":
+        return est.model(crops)  # SwinPose takes NHWC crops
+    # (B, in_h, in_w, 3) viewed as NCHW is channels_last: no copy.
+    return est.model(crops.permute(0, 3, 1, 2), fused_stage1=est.fused_stage1)
 
 
 def _pushforward(stride, xy_hm, score, moments, scale, offset) -> dict:

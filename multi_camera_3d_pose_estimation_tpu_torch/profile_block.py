@@ -1,8 +1,10 @@
 """Where a block's time goes on the card: a torch.profiler trace of the
 headline pipeline (HRNet-W32, input 192x256, T=256 x C=2 frames of
-256x256, random weights from a seed).
+256x256) or, with ``--family swin``, the Swin-B pipeline (input 192x256,
+T=128 x C=2 frames of 256x256, as the JAX bench's ``bench_swin``), random
+weights from a seed.
 
-    python -m multi_camera_3d_pose_estimation_tpu_torch.profile_block [--blocks 2]
+    python -m multi_camera_3d_pose_estimation_tpu_torch.profile_block [--family swin] [--blocks 2]
 
 Prints the wall time per block, the device's busy share (the sum of CUDA
 kernel times over the wall time; the pipeline runs on one stream), the
@@ -22,11 +24,19 @@ import torch
 
 from .entry import build_pipeline
 from .models.hrnet import HRNET_W32
+from .models.swin import SWIN_B
 
-# Substrings of CUDA kernel names -> the family a kernel's time is filed under.
+# (config, frames per block) of each family's pipeline; input 192x256, C=2.
+PIPELINES = {"hrnet": (HRNET_W32, 256), "swin": (SWIN_B, 128)}
+
+# Substrings of CUDA kernel names -> the family a kernel's time is filed under,
+# first match wins: the port's own kernels come before the library families
+# ("swin_gemm_kernel" contains "gemm").
 FAMILIES = (
     ("bottleneck_kernel", "stage-1 Bottleneck kernel (ours)"),
     ("decode_kernel", "heatmap decode kernel (ours)"),
+    ("swin_gemm_kernel", "Swin token GEMMs (ours)"),
+    ("window_attention_kernel", "window attention kernel (ours)"),
     ("conv", "convolution (cuDNN)"), ("xmma", "convolution (cuDNN)"),
     ("implicit_convolve", "convolution (cuDNN)"), ("sm90_", "convolution/GEMM (cuDNN/cuBLAS)"),
     ("gemm", "matmul (cuBLAS)"), ("upsample", "nearest upsample"),
@@ -45,6 +55,7 @@ def family(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--family", choices=sorted(PIPELINES), default="hrnet")
     ap.add_argument("--blocks", type=int, default=2)
     ap.add_argument("--trace", default="build/profile_block.json")
     args = ap.parse_args()
@@ -53,8 +64,10 @@ def main() -> None:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    T, C, H, W = 256, 2, 256, 256
-    pipe = build_pipeline(HRNET_W32, (192, 256), (T, C, H, W, 3), device="cuda", seed=0)
+    cfg, T = PIPELINES[args.family]
+    C, H, W = 2, 256, 256
+    pipe = build_pipeline(cfg, (192, 256), (T, C, H, W, 3), device="cuda", seed=0,
+                          family=args.family)
     gen = torch.Generator().manual_seed(1)
     frames = torch.randint(0, 256, (T, C, H, W, 3), generator=gen, dtype=torch.uint8).cuda()
     pipe.run(frames)
@@ -78,7 +91,7 @@ def main() -> None:
     for name, (ms, _) in kernels.items():
         by_family[family(name)] += ms
     n = args.blocks
-    print(f"card: {card}")
+    print(f"card: {card}; family {args.family}, T={T}")
     print(f"wall {wall * 1e3 / n:.3f} ms/block ({T * n / wall:.1f} frames/s); device busy "
           f"{busy / n:.3f} ms/block = {busy / (wall * 1e3):.3f} of wall; "
           f"{sum(c for _, c in kernels.values()) / n:.0f} kernel launches/block")
