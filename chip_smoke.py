@@ -33,7 +33,22 @@ Phases (each synchronises the card; any failure exits non-zero):
    attention again on the same qkv with a bias of trained scale, with
    controls showing that a wrong bias or mask fails its tolerance;
 8. a small Swin pipeline on the card against the plain CPU path;
-9. one JSON line with every kernel, the card's line, and the final
+9. the Swin-B main path again with ``MC3D_SWIN_FIXED=1``: every stage in
+   fixed order (tokens in shift-0 window order for the whole stage, each
+   shifted block's attention reading its windows through a row table).  A
+   warm-up block, then the counts are set to 0, a few blocks run and the
+   counts are read (96 swin_gemm, 24 row-mode attention, 0 chained-layout
+   attention and 1 decode launch per block); spies show that every stage
+   ran `fused_swin_stage_fixed` and the chained `fused_swin_block` never;
+10. the first shifted fixed-order block of each stage (captured on the main
+   path) against its plain version and against the chained
+   `fused_swin_block` on the same map, its row-mode attention against its
+   plain version (again with an N(0, 1) bias, with controls: the identity
+   row table, no mask, the next head's bias), and each whole stage against
+   its plain version and against its blocks one by one, with kernel,
+   plain, chained and SDPA times and the bounds;
+11. a small fixed-order Swin pipeline on the card against the plain CPU path;
+12. one JSON line with every kernel, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
@@ -77,7 +92,9 @@ N_SWIN_BLOCKS = 3
 # step of their token's largest value.)  Each block, on the same input: at
 # most 4 bf16 steps (2^-8) of its largest output, and at most 1e-3 of
 # outputs more than one bf16 step of their token's largest value apart.
-# The attention core alone: 2 steps of its largest output.
+# The attention core alone: 2 steps of its largest output.  A whole stage
+# of depth blocks, where each block's flips carry into the next: depth x 4
+# steps of its largest output.
 SWIN_BLOCK_REL_TOL, SWIN_ROW_FLIP_SHARE, ATTN_REL_TOL = 4 * 2.0 ** -8, 1e-3, 2 * 2.0 ** -8
 
 
@@ -165,7 +182,7 @@ SMALL = {  # (config, input (w, h)) of the small card-vs-CPU pipelines
 }
 
 
-def check_small_pipeline(gen, family: str) -> None:
+def check_small_pipeline(gen, family: str, label: str = "") -> None:
     """The whole pipeline on the card against the plain CPU path (the one the
     CPU tests hold against the JAX package), at a small size."""
     import torch
@@ -183,7 +200,7 @@ def check_small_pipeline(gen, family: str) -> None:
     both = same & torch.isfinite(a["kpts_3d"]).all(-1) & torch.isfinite(b["kpts_3d"]).all(-1)
     d3 = (a["kpts_3d"][both] - b["kpts_3d"][both]).abs()
     tol3 = 1e-2 + 1e-3 * b["kpts_3d"][both].abs()
-    log(f"small {family} pipeline, card vs CPU plain: {same.float().mean().item():.3f} of joints "
+    log(f"small {label}{family} pipeline, card vs CPU plain: {same.float().mean().item():.3f} of joints "
         f"with the same peaks, {int(both.sum())} triangulated on both, max |d kpts_3d| "
         f"{d3.max().item() if d3.numel() else 0.0:.4g}")
     check(same.float().mean() >= 0.5 and both.sum() >= 5 and bool((d3 <= tol3).all()),
@@ -246,34 +263,92 @@ def run_swin_main_path(dev, gen) -> dict:
                        "heatmap_decode": N_SWIN_BLOCKS},
           "96 swin_gemm, 24 window-attention and 1 decode launch per block")
     check_outputs(out, pipe, SWIN_T)
-    return {"pipe": pipe, "frames": blocks_u8[0], "fps": fps, "launches": launches}
+    return {"pipe": pipe, "frames": blocks_u8[0], "blocks": blocks_u8, "fps": fps,
+            "launches": launches}
 
 
-def block_bound(real: int, p: dict, heads: int, n: int, C_: int):
+def run_fixed_main_path(swin: dict) -> dict:
+    """The Swin-B main path of `run_swin_main_path` (same pipeline, weights
+    and frames) with ``MC3D_SWIN_FIXED=1``, which the caller has set: a
+    warm-up block, then N_SWIN_BLOCKS counted and timed blocks, with spies
+    on the stage and chained-block entry points the model calls."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_B
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
+
+    pipe, blocks_u8 = swin["pipe"], swin["blocks"]
+    out = pipe.run(blocks_u8[0])  # warm-up
+    torch.cuda.synchronize()
+    counters = {"swin_gemm": sb.swin_gemm, "window_attention_rows": wa.window_attention_rows,
+                "window_attention": wa.window_attention, "heatmap_decode": fd.heatmap_decode_raw}
+    calls = {"fused_swin_stage_fixed": [], "fused_swin_block": []}
+    originals = {name: getattr(sb, name) for name in calls}
+
+    def spy(name):
+        def fn(*args, **kwargs):
+            calls[name].append(args[0].shape[-1])
+            return originals[name](*args, **kwargs)
+        return fn
+
+    for name in calls:
+        setattr(sb, name, spy(name))
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(N_SWIN_BLOCKS):
+        out = pipe.run(blocks_u8[i % 2])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for name, fn in originals.items():
+        setattr(sb, name, fn)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    fps = SWIN_T * N_SWIN_BLOCKS / dt
+    log(f"Swin-B fixed-order main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) "
+        f"in {dt:.3f} s -> {fps:.1f} multi-camera frames/s (chained layout {swin['fps']:.1f}); "
+        f"launches {launches}; stages run fixed {calls['fused_swin_stage_fixed']}, chained "
+        f"blocks {calls['fused_swin_block']}")
+    n_blocks = sum(SWIN_B["depths"])
+    check(launches == {"swin_gemm": 4 * n_blocks * N_SWIN_BLOCKS,
+                       "window_attention_rows": n_blocks * N_SWIN_BLOCKS,
+                       "window_attention": 0, "heatmap_decode": N_SWIN_BLOCKS},
+          "96 swin_gemm, 24 row-mode attention, 0 chained attention and 1 decode launch per "
+          "block on the fixed-order path")
+    widths = [SWIN_B["embed"] * 2 ** i for i in range(len(SWIN_B["depths"]))]
+    check(calls["fused_swin_stage_fixed"] == widths * N_SWIN_BLOCKS,
+          "every stage ran fused_swin_stage_fixed")
+    check(not calls["fused_swin_block"], "the chained fused_swin_block ran no time")
+    check_outputs(out, pipe, SWIN_T)
+    return {"fps": fps, "launches": launches}
+
+
+def block_bound(real: int, p: dict, heads: int, n: int, C_: int, extra_bytes: int = 0):
     """Least time of one SwinBlock whose map holds ``real`` tokens: its bf16
     tensor-core operations against one read of the real tokens, weights and
-    tables and one write of the real outputs.  Window padding needs no work:
-    pad rows enter qkv as zeros (their k/v are the bias, which the
-    attention reads as keys) and their other products are zeroed or cropped
-    off, so the four products count real rows, and the attention n keys
-    for each real query."""
+    tables (and ``extra_bytes``: a row table) and one write of the real
+    outputs.  Window padding needs no work: pad rows enter qkv as zeros
+    (their k/v are the bias, which the attention reads as keys) and their
+    other products are zeroed, cropped off or never reach a real token, so
+    the four products count real rows, and the attention n keys for each
+    real query."""
     flops = 2 * real * sum(p[k].numel() for k in ("wqkv", "wproj", "wfc1", "wfc2"))
     flops += 4 * real * n * C_
-    nbytes = 2 * real * C_ * 2 + sum(t.numel() * t.element_size() for v in p.values()
-                                     for t in (v if isinstance(v, tuple) else (v,)))
+    nbytes = 2 * real * C_ * 2 + extra_bytes + sum(
+        t.numel() * t.element_size() for v in p.values()
+        for t in (v if isinstance(v, tuple) else (v,)))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_bound(qkv, bias, mask, heads: int, real: int):
-    """Least time of the attention core on a map of ``real`` tokens: the
-    real queries and every window token's k and v read once, bias and mask
-    read once, the real tokens' ctx written once, against the bf16
+def attention_bound(Bw: int, n: int, C_: int, bias, mask, real: int, extra_bytes: int = 0):
+    """Least time of the attention core over Bw windows of n tokens on a
+    map of ``real`` tokens: the real queries and every window token's k and
+    v read once, bias, mask (and ``extra_bytes``: a row table, alignment
+    rows) read once, the real tokens' ctx written once, against the bf16
     tensor-core operations of n keys for each real query."""
-    Bw, n, C3 = qkv.shape
-    C_ = C3 // 3
     flops = 4 * real * n * C_
-    nbytes = (real * C_ * 2 + Bw * n * 2 * C_ * 2 + real * C_ * 2
+    nbytes = (real * C_ * 2 + Bw * n * 2 * C_ * 2 + real * C_ * 2 + extra_bytes
               + bias.numel() * bias.element_size() + (mask.numel() * 4 if mask is not None else 0))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -295,6 +370,39 @@ def sdpa_library(qkv, bias, mask, heads: int):
         add = add.reshape(Bw, heads, n, n)
     add = add.to(qkv.dtype).contiguous()
     return (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add)), add
+
+
+def total(rows, key):
+    """Per forward: the sum over stages of depth x one block's ``key``."""
+    return sum(r["depth"] * r[key] for r in rows)
+
+
+def rows_bound_by(rows):
+    """What bounds a sum of stage rows: "operations", "bytes" or "mixed"."""
+    return "operations" if all(r["by"] == "operations" for r in rows) else (
+        "bytes" if all(r["by"] == "bytes" for r in rows) else "mixed")
+
+
+def check_trained_bias(kernel, plain, args, controls: dict, what: str) -> float:
+    """The attention kernel against its plain version with a bias of
+    trained scale: ``kernel(*args)`` within ATTN_REL_TOL of
+    ``plain(*args)``'s largest output, while ``plain`` with each control's
+    arguments (one of them wrong) is off by more.  The random table
+    (N(0, 0.02^2)) moves ctx by about 1e-3, under that tolerance, which
+    is why the check runs again with an N(0, 1) bias.  Returns the error."""
+    import torch
+
+    kb, pb = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = (kb.float() - pb.float()).abs().max().item()
+    scale = pb.float().abs().max().item()
+    off = {k: (plain(*a).float() - pb.float()).abs().max().item() for k, a in controls.items()}
+    log(f"  with an N(0, 1) bias: max |kernel - plain| {err:.6g} (tolerance {ATTN_REL_TOL} x "
+        f"{scale:.4g}); plain controls off by " + ", ".join(f"{k} {v:.4g}" for k, v in off.items()))
+    check(err <= ATTN_REL_TOL * scale, f"{what} agrees with a trained-scale bias")
+    check(all(v > ATTN_REL_TOL * scale for v in off.values()),
+          f"{what}: each control fails the attention tolerance")
+    return err
 
 
 def check_swin_kernels(swin: dict, dev) -> list:
@@ -371,7 +479,7 @@ def check_swin_kernels(swin: dict, dev) -> list:
             aerr = (ka.float() - pa.float()).abs().max().item()
             ascale = pa.float().abs().max().item()
             lerr = (la.float() - pa.float()).abs().max().item()
-            abound, aby = attention_bound(qkv, p["bias"], mask, blk.heads, real)
+            abound, aby = attention_bound(qkv.shape[0], n, C_, p["bias"], mask, real)
             ta = {"ms": cuda_ms(lambda: wa.window_attention(qkv, p["bias"], mask, blk.heads), 20),
                   "plain_ms": cuda_ms(lambda: wa.window_attention_plain(qkv, p["bias"], mask,
                                                                         blk.heads), 3),
@@ -388,34 +496,17 @@ def check_swin_kernels(swin: dict, dev) -> list:
             # scale, N(0, 1): controls show that plain with no bias, with the
             # next head's bias or (shifted) with no mask fails the tolerance.
             strong = torch.randn(p["bias"].shape, generator=bias_gen).to(dev)
-            kb = wa.window_attention(qkv, strong, mask, blk.heads)
-            pb = wa.window_attention_plain(qkv, strong, mask, blk.heads)
             controls = {"no bias": (torch.zeros_like(strong), mask),
                         "the next head's bias": (strong.roll(1, 0), mask)}
             if mask is not None:
                 controls["no mask"] = (strong, None)
-            torch.cuda.synchronize()
-            berr = (kb.float() - pb.float()).abs().max().item()
-            bscale = pb.float().abs().max().item()
-            cerr = {k: (wa.window_attention_plain(qkv, b_, m_, blk.heads).float()
-                        - pb.float()).abs().max().item() for k, (b_, m_) in controls.items()}
-            log(f"  with an N(0, 1) bias: max |kernel - plain| {berr:.6g} (tolerance "
-                f"{ATTN_REL_TOL} x {bscale:.4g}); plain controls off by "
-                + ", ".join(f"{k} {v:.4g}" for k, v in cerr.items()))
-            check(berr <= ATTN_REL_TOL * bscale,
-                  f"Swin stage {i}: the window attention kernel agrees with a trained-scale bias")
-            check(all(v > ATTN_REL_TOL * bscale for v in cerr.values()),
-                  f"Swin stage {i}: a wrong bias or mask fails the attention tolerance")
+            berr = check_trained_bias(
+                lambda b_, m_: wa.window_attention(qkv, b_, m_, blk.heads),
+                lambda b_, m_: wa.window_attention_plain(qkv, b_, m_, blk.heads),
+                (strong, mask), controls, f"Swin stage {i}: the window attention kernel")
             attn_stages.append(dict(ta, depth=depth, err=aerr, bias_err=berr, bound=abound,
                                     by=aby))
             del add
-
-    def total(rows, key):
-        return sum(r["depth"] * r[key] for r in rows)
-
-    def by(rows):
-        return "operations" if all(r["by"] == "operations" for r in rows) else (
-            "bytes" if all(r["by"] == "bytes" for r in rows) else "mixed")
 
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     launches = swin["launches"]
@@ -430,7 +521,7 @@ def check_swin_kernels(swin: dict, dev) -> list:
          "launches": launches["swin_gemm"] + launches["window_attention"],
          "max_abs_err": max(r["err"] for r in stages),
          "ms": total(stages, "ms"), "plain_ms": total(stages, "plain_ms"),
-         "bound_ms": total(stages, "bound"), "bound_by": by(stages), "library_ms": None,
+         "bound_ms": total(stages, "bound"), "bound_by": rows_bound_by(stages), "library_ms": None,
          "per_forward": f"{sum(cfg['depths'])} blocks: sum over stages of depth x one block "
                         "of the main path"},
         {"name": "window_attention", "route": "cuda",
@@ -441,11 +532,204 @@ def check_swin_kernels(swin: dict, dev) -> list:
          "launches": launches["window_attention"],
          "max_abs_err": max(r["err"] for r in attn_stages),
          "ms": total(attn_stages, "ms"), "plain_ms": total(attn_stages, "plain_ms"),
-         "bound_ms": total(attn_stages, "bound"), "bound_by": by(attn_stages),
+         "bound_ms": total(attn_stages, "bound"), "bound_by": rows_bound_by(attn_stages),
          "library_ms": total(attn_stages, "library_ms"),
          "max_abs_err_trained_bias": max(r["bias_err"] for r in attn_stages),
          "per_forward": f"{sum(cfg['depths'])} launches: sum over stages of depth x one "
                         "launch of the main path"},
+    ]
+
+
+def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
+    """The fixed-order path's kernels on the inputs its main path gave them
+    (``MC3D_SWIN_FIXED=1``, set by the caller): per stage, the first shifted
+    block and its row-mode attention, and the whole stage."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import preprocess_crops
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
+    from multi_camera_3d_pose_estimation_tpu_torch.ops.swin_geometry import (
+        device_table, fixed_reverse, fixed_rows, padded_dims, window_partition, window_roll_perm)
+
+    model = swin["pipe"].estimator.model
+    cfg = model.cfg
+    frames = swin["frames"].reshape(SWIN_T * C, H, W, 3).to(torch.bfloat16) / 255.0
+    boxes = torch.tensor([0.0, 0.0, W, H], device=dev).expand(SWIN_T * C, 4)
+    blocks_in, stages_in = {}, {}
+    originals = {name: getattr(sb, name) for name in ("fused_swin_block_fixed",
+                                                      "fused_swin_stage_fixed")}
+
+    def block_hook(x, p, **kw):  # the call goes on unchanged
+        if kw["shift"]:
+            blocks_in.setdefault(x.shape[-1], (x, p, kw))
+        return originals["fused_swin_block_fixed"](x, p, **kw)
+
+    def stage_hook(x, plist, **kw):
+        stages_in.setdefault(x.shape[-1], (x, plist, kw))
+        return originals["fused_swin_stage_fixed"](x, plist, **kw)
+
+    sb.fused_swin_block_fixed, sb.fused_swin_stage_fixed = block_hook, stage_hook
+    with torch.inference_mode():
+        crops, _, _ = preprocess_crops(frames, boxes, INPUT)
+        model(crops)
+        torch.cuda.synchronize()
+    for name, fn in originals.items():
+        setattr(sb, name, fn)
+    bias_gen = torch.Generator().manual_seed(8)
+    blocks, attns, stages = [], [], []
+    with torch.inference_mode():
+        for i, depth in enumerate(cfg["depths"]):
+            C_ = cfg["embed"] * 2 ** i
+            x, p, kw = blocks_in[C_]
+            heads, win, shift = kw["heads"], kw["window"], kw["shift"]
+            B_, Hc, Wc = kw["geom"]
+            n, real, P = win * win, B_ * Hc * Wc, fixed_rows(Hc, Wc, win)
+            Hp, Wp = padded_dims(Hc, Wc, win)
+            valid, rows, mask = sb.fixed_tables(Hc, Wc, win, shift, dev)
+            kern = sb.fused_swin_block_fixed(x, p, **kw)
+            plain = sb.swin_block_fixed_plain(x, p, **kw)
+            # The chained block on the same map, window-order tokens in and out.
+            chained_args = dict(heads=heads, window=win, shift=shift, mlp_ratio=kw["mlp_ratio"])
+            img = fixed_reverse(x, B_, Hc, Wc, win)
+            xw = window_partition(img, win, shift).contiguous()
+            chained = sb.fused_swin_block(img, p, **chained_args)
+            torch.cuda.synchronize()
+            err = (kern.float() - plain.float()).abs().max().item()
+            scale = plain.float().abs().max().item()
+            row_share = bf16_steps_apart_rows(kern, plain)
+            kimg = fixed_reverse(kern, B_, Hc, Wc, win)
+            cerr = (kimg.float() - chained.float()).abs().max().item()
+            cscale = chained.float().abs().max().item()
+            crow_share = bf16_steps_apart_rows(kimg, chained)
+            extra = rows.numel() * 4
+            bound, bby = block_bound(real, p, heads, n, C_, extra)
+            t = {"ms": cuda_ms(lambda: sb.fused_swin_block_fixed(x, p, **kw), 10),
+                 "plain_ms": cuda_ms(lambda: sb.swin_block_fixed_plain(x, p, **kw), 2),
+                 "chained_ms": cuda_ms(lambda: sb.fused_swin_block(
+                     xw, p, pre_partitioned=(B_, Hc, Wc), emit_partitioned=True,
+                     **chained_args), 10)}
+            log(f"fixed stage {i} block 1 (x{depth}) tokens {tuple(x.shape)} (P={P}, {real} "
+                f"real), map {Hc}x{Wc}: max |kernel - plain| {err:.6g} (tolerance "
+                f"{SWIN_BLOCK_REL_TOL} x {scale:.4g}), share > 1 bf16 step of the token's largest "
+                f"{row_share:.3g}; against the chained block after fixed_reverse {cerr:.6g} "
+                f"(tolerance {SWIN_BLOCK_REL_TOL} x {cscale:.4g}), share {crow_share:.3g} "
+                f"(tolerance {SWIN_ROW_FLIP_SHARE}); kernel {t['ms']:.4f} ms, chained block "
+                f"{t['chained_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {bound:.4f} ms "
+                f"by {bby}")
+            check(err <= SWIN_BLOCK_REL_TOL * scale and row_share <= SWIN_ROW_FLIP_SHARE,
+                  f"fixed stage {i}: the block kernels agree with their plain version")
+            check(cerr <= SWIN_BLOCK_REL_TOL * cscale and crow_share <= SWIN_ROW_FLIP_SHARE,
+                  f"fixed stage {i}: the fixed-order block agrees with the chained block")
+            blocks.append(dict(t, depth=depth, err=err, bound=bound, by=bby))
+
+            # The row-mode attention on this block's own qkv.
+            qkv = sb.swin_gemm("qkv", x, p["wqkv"], p["bqkv"], ln=p["norm1"], valid=valid)
+            ka = wa.window_attention_rows(qkv, p["bias"], mask, heads, rows, P)
+            pa = wa.window_attention_rows_plain(qkv, p["bias"], mask, heads, rows, P)
+            Bw = B_ * (Hp // win) * (Wp // win)
+            idx = (torch.arange(B_, device=dev)[:, None] * P + rows.long()[None, :]).reshape(-1)
+            qkv_w = qkv[idx].view(Bw, n, 3 * C_)  # gathered for the yardstick, untimed
+            lib, add = sdpa_library(qkv_w, p["bias"], mask, heads)
+            valid_c, mask_c = sb.block_tables(Hc, Wc, win, shift, dev)
+            qkv_c = sb.swin_gemm("qkv", xw, p["wqkv"], p["bqkv"], ln=p["norm1"],
+                                 valid=valid_c).view(Bw, n, 3 * C_)
+            torch.cuda.synchronize()
+            aerr = (ka.float() - pa.float()).abs().max().item()
+            ascale = pa.float().abs().max().item()
+            tail = (P - Hp * Wp) * B_
+            abound, aby = attention_bound(Bw, n, C_, p["bias"], mask, real,
+                                          extra + 2 * tail * C_ * 2)
+            ta = {"ms": cuda_ms(lambda: wa.window_attention_rows(qkv, p["bias"], mask, heads,
+                                                                 rows, P), 20),
+                  "plain_ms": cuda_ms(lambda: wa.window_attention_rows_plain(
+                      qkv, p["bias"], mask, heads, rows, P), 3),
+                  "library_ms": cuda_ms(lib, 20),
+                  "chained_ms": cuda_ms(lambda: wa.window_attention(qkv_c, p["bias"], mask_c,
+                                                                    heads), 20)}
+            log(f"  row-mode attention qkv {tuple(qkv.shape)} heads {heads}, {Bw} windows: max "
+                f"|kernel - plain| {aerr:.6g} (tolerance {ATTN_REL_TOL} x {ascale:.4g}); kernel "
+                f"{ta['ms']:.4f} ms, chained-layout attention {ta['chained_ms']:.4f} ms, plain "
+                f"{ta['plain_ms']:.4f} ms, SDPA on the gathered windows (gather and scatter "
+                f"left out) {ta['library_ms']:.4f} ms; bound {abound:.4f} ms by {aby}")
+            check(aerr <= ATTN_REL_TOL * ascale,
+                  f"fixed stage {i}: the row-mode attention agrees with its plain version")
+            strong = torch.randn(p["bias"].shape, generator=bias_gen).to(dev)
+            identity = torch.arange(rows.numel(), dtype=torch.int32, device=dev)
+            controls = {"the identity row table": (strong, mask, identity),
+                        "no mask": (strong, None, rows),
+                        "the next head's bias": (strong.roll(1, 0), mask, rows)}
+            berr = check_trained_bias(
+                lambda b_, m_, r_=rows: wa.window_attention_rows(qkv, b_, m_, heads, r_, P),
+                lambda b_, m_, r_=rows: wa.window_attention_rows_plain(qkv, b_, m_, heads, r_, P),
+                (strong, mask), controls, f"fixed stage {i}: the row-mode attention")
+            attns.append(dict(ta, depth=depth, err=aerr, bias_err=berr, bound=abound, by=aby))
+            del add, qkv_w, qkv_c
+
+            # The whole stage: its blocks one by one, and its plain version.
+            xs, plist, skw = stages_in[C_]
+            ks = sb.fused_swin_stage_fixed(xs, plist, **skw)
+            one_by_one = xs
+            for p_, s_ in zip(plist, skw["shifts"]):
+                one_by_one = sb.fused_swin_block_fixed(
+                    one_by_one, p_, heads=heads, window=win, shift=s_,
+                    mlp_ratio=skw["mlp_ratio"], geom=skw["geom"])
+            # The same stage in the chained window layout, as the model runs it.
+            cw = sb.fused_swin_block(fixed_reverse(xs, B_, Hc, Wc, win), plist[0],
+                                     emit_partitioned=True, **dict(chained_args, shift=0))
+            for j in range(1, depth):
+                perm = device_table(window_roll_perm, Hc, Wc, win, skw["shifts"][j - 1],
+                                    skw["shifts"][j], device=dev, dtype=torch.long)
+                cw = cw.view(B_, -1, C_).index_select(1, perm).view(-1, C_)
+                cw = sb.fused_swin_block(cw, plist[j], pre_partitioned=(B_, Hc, Wc),
+                                         emit_partitioned=j < depth - 1,
+                                         **dict(chained_args, shift=skw["shifts"][j]))
+            pstage = sb.swin_stage_fixed_plain(xs, plist, **skw)
+            torch.cuda.synchronize()
+            same_chained = torch.equal(fixed_reverse(ks, B_, Hc, Wc, win), cw)
+            serr = (ks.float() - pstage.float()).abs().max().item()
+            sscale = pstage.float().abs().max().item()
+            ts = {"ms": cuda_ms(lambda: sb.fused_swin_stage_fixed(xs, plist, **skw), 3),
+                  "plain_ms": cuda_ms(lambda: sb.swin_stage_fixed_plain(xs, plist, **skw), 1)}
+            log(f"  the whole stage ({depth} blocks): equal to its blocks one by one "
+                f"{torch.equal(ks, one_by_one)}, to the chained-layout stage on its real tokens "
+                f"{same_chained}; max |kernel - plain| {serr:.6g} (tolerance {depth} blocks x "
+                f"{SWIN_BLOCK_REL_TOL} x {sscale:.4g}; {serr / sscale / 2.0 ** -8:.3g} bf16 steps "
+                f"of its largest output), share > 1 bf16 step of the token's largest "
+                f"{bf16_steps_apart_rows(ks, pstage):.3g}; kernel {ts['ms']:.4f} ms, plain "
+                f"{ts['plain_ms']:.4f} ms")
+            check(torch.equal(ks, one_by_one), f"fixed stage {i}: the stage is its blocks")
+            check(same_chained, f"fixed stage {i}: the stage equals the chained-layout stage")
+            check(serr <= depth * SWIN_BLOCK_REL_TOL * sscale,
+                  f"fixed stage {i}: the stage agrees with its plain version")
+            stages.append(dict(ts, depth=1, err=serr, bound=depth * bound, by=bby))
+
+    here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
+    launches = fixed["launches"]["swin_gemm"] + fixed["launches"]["window_attention_rows"]
+    log("fixed-order Swin totals per forward (sum over stages of depth x one block): blocks "
+        f"kernel {total(blocks, 'ms'):.4f} ms (chained layout {total(blocks, 'chained_ms'):.4f}),"
+        f" bound {total(blocks, 'bound'):.4f} ms; stages kernel {total(stages, 'ms'):.4f} ms; "
+        f"row-mode attention {total(attns, 'ms'):.4f} ms (chained layout "
+        f"{total(attns, 'chained_ms'):.4f}), SDPA {total(attns, 'library_ms'):.4f} ms, bound "
+        f"{total(attns, 'bound'):.4f} ms")
+    src = f"{PORT}/csrc/swin_gemm.cu + {PORT}/csrc/window_attention.cu (row mode)"
+    return [
+        {"name": "swin_block_fixed", "route": "cuda", "source": src,
+         "replaces": f"{here}/swin_block.py:473 (fused_swin_block_fixed, pallas_call :528)",
+         "launches": launches, "max_abs_err": max(r["err"] for r in blocks),
+         "ms": total(blocks, "ms"), "plain_ms": total(blocks, "plain_ms"),
+         "bound_ms": total(blocks, "bound"), "bound_by": rows_bound_by(blocks), "library_ms": None,
+         "chained_ms": total(blocks, "chained_ms"),
+         "attention_ms": total(attns, "ms"), "attention_bound_ms": total(attns, "bound"),
+         "attention_sdpa_ms": total(attns, "library_ms"),
+         "max_abs_err_attention_trained_bias": max(r["bias_err"] for r in attns),
+         "per_forward": f"{sum(cfg['depths'])} blocks: sum over stages of depth x one block "
+                        "of the fixed-order main path"},
+        {"name": "swin_stage_fixed", "route": "cuda", "source": src,
+         "replaces": f"{here}/swin_block.py:379 (fused_swin_stage_fixed, pallas_call :452)",
+         "launches": launches, "max_abs_err": max(r["err"] for r in stages),
+         "ms": total(stages, "ms"), "plain_ms": total(stages, "plain_ms"),
+         "bound_ms": total(stages, "bound"), "bound_by": rows_bound_by(stages), "library_ms": None,
+         "per_forward": f"{len(cfg['depths'])} stages of the fixed-order main path, each whole"},
     ]
 
 
@@ -596,7 +880,18 @@ def main() -> int:
     # 8. A small Swin pipeline on the card against the plain CPU path.
     check_small_pipeline(gen, family="swin")
 
-    # 9. Results.
+    # 9-11. The fixed-order Swin layout: main path, kernels, small pipeline.
+    before = os.environ.get("MC3D_SWIN_FIXED")
+    os.environ["MC3D_SWIN_FIXED"] = "1"
+    fixed = run_fixed_main_path(swin)
+    fixed_rows_json = check_fixed_kernels(swin, fixed, dev)
+    check_small_pipeline(gen, family="swin", label="fixed-order ")
+    if before is None:
+        del os.environ["MC3D_SWIN_FIXED"]
+    else:
+        os.environ["MC3D_SWIN_FIXED"] = before
+
+    # 12. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -612,9 +907,9 @@ def main() -> int:
          "plain_ms": dec["plain_ms"], "bound_ms": dec_bound, "bound_by": "bytes",
          "library_ms": None},
     ]
-    kernels += swin_rows
-    print(json.dumps({"kernels": kernels, "frames_per_s": fps,
-                      "swin_frames_per_s": swin["fps"]}), flush=True)
+    kernels += swin_rows + fixed_rows_json
+    print(json.dumps({"kernels": kernels, "frames_per_s": fps, "swin_frames_per_s": swin["fps"],
+                      "swin_fixed_frames_per_s": fixed["fps"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

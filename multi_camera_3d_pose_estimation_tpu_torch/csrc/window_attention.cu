@@ -3,12 +3,24 @@
 // Replaces, in the JAX package, ops/pallas/window_attention.py::
 // fused_window_attention (one window per grid step) and ::
 // packed_window_attention (several windows per matrix-unit pass), and the attention
-// step of ops/pallas/swin_block.py::fused_swin_block.  For window w and head h
+// step of ops/pallas/swin_block.py::fused_swin_block and, in row mode, of
+// ::fused_swin_block_fixed and ::fused_swin_stage_fixed.  For window w and head h
 // of qkv (Bw, n, 3C) (q | k | v, C = heads * 32):
 //   s   = f32(q_h k_h^T) * 32^-1/2 + bias[h] + mask[w mod nW]
 //   p   = bf16(softmax_f32(s))            (row-wise)
 //   ctx = bf16(f32(p v_h))                -> out[w, :, h*32 : h*32+32]
-// exactly the Pallas kernels' cast points.  The TPU kernels' packing of WB
+// exactly the Pallas kernels' cast points.
+//
+// Row mode (the fixed-order stage layout): qkv and out are (B*P, 3C) and
+// (B*P, C), each crop's tokens in shift-0 window order padded to P rows, and
+// window w of crop c = w / nW reads and writes token k at row
+// c*P + rows[(w % nW)*n + k], rows being the block's (shifted) window
+// grouping of the fixed order (window_roll_perm).  The Pallas kernels' full
+// (P, P) table (bias, -100 across wrap regions, -1e5 across windows) is
+// exactly this per-window attention; its P - nW*n alignment rows per crop
+// attend only to themselves, so their ctx is their own v, which extra CTAs,
+// one per crop, copy.  Its bound is the one below plus the table's nW*n*4
+// bytes and the alignment rows' v read and ctx written.  The TPU kernels' packing of WB
 // windows into one block-diagonal product (-1e5 off the diagonal) works
 // around the TPU matrix unit's per-pass latency; here each window is its own.
 //
@@ -36,7 +48,12 @@
 //   with two shuffles.  The normalized probabilities are rounded to bf16 and
 //   re-packed in registers as the A fragments of P V (4 k-steps x 4 n-tiles).
 // - Head dim 32 only (Swin-T, -B and -L); the wrapper raises otherwise.
+// - The window's n row numbers are staged in shared memory once (sRows); both
+//   modes load and store through them, so the row mode costs one table read
+//   per window and the gather and scatter are the kernel's own loads and
+//   stores.
 
+#include <assert.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,22 +91,43 @@ __global__ void __launch_bounds__(NTHREADS)
     window_attention_kernel(const bf16* __restrict__ qkv,
                             const float* __restrict__ bias,
                             const float* __restrict__ mask,
-                            bf16* __restrict__ out, int n, int heads, int C,
-                            int nW, float scale) {
+                            const int* __restrict__ rows,
+                            bf16* __restrict__ out, int Bw, int n, int heads, int C,
+                            int nW, int P, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + ROWS * LDQ;
   bf16* sVt = sK + ROWS * LDQ;
   float* sBias = reinterpret_cast<float*>(sVt + D * LDV);
   float* sMask = sBias + n * n;
+  int* sRows = reinterpret_cast<int*>(sMask + n * n);
 
   const int w = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int nn = n * n;
   const size_t ld = 3 * static_cast<size_t>(C);
-  const bf16* base = qkv + static_cast<size_t>(w) * n * ld;
 
+  if (w >= Bw) {  // row mode: crop w - Bw's alignment rows, ctx = v
+    const size_t first = static_cast<size_t>(w - Bw) * P + static_cast<size_t>(nW) * n;
+    const int chunks = C / 8, count = (P - nW * n) * chunks;
+    for (int i = tid; i < count; i += NTHREADS) {
+      const size_t r = first + i / chunks;
+      const int c = (i % chunks) * 8;
+      *reinterpret_cast<uint4*>(out + r * C + c) =
+          *reinterpret_cast<const uint4*>(qkv + r * ld + 2 * C + c);
+    }
+    return;
+  }
+  if (tid < n) {
+    int r = w * n + tid;
+    if (rows != nullptr) {
+      const int k = rows[(w % nW) * n + tid];
+      assert(k >= 0 && k < nW * n);  // a bad table stops the kernel, as torch's indexing does
+      r = (w / nW) * P + k;
+    }
+    sRows[tid] = r;
+  }
   if (mask != nullptr) {
     const float* mrow = mask + static_cast<size_t>(w % nW) * nn;
     for (int i = tid; i < nn; i += NTHREADS) sMask[i] = mrow[i];
@@ -99,13 +137,13 @@ __global__ void __launch_bounds__(NTHREADS)
   const int ra = r0 + g, rb = ra + 8;  // this lane's two query rows
 
   for (int h = 0; h < heads; ++h) {
-    __syncthreads();  // the previous head is done with shared memory
+    __syncthreads();  // the previous head is done with shared memory (and sRows is in)
     // q and k: 64 rows x 4 chunks of 8 bf16; v transposed into sVt.
     for (int i = tid; i < ROWS * 4; i += NTHREADS) {
       const int r = i >> 2, c = (i & 3) * 8;
       uint4 q = make_uint4(0, 0, 0, 0), k = q, v = q;
       if (r < n) {
-        const bf16* row = base + r * ld + h * D + c;
+        const bf16* row = qkv + static_cast<size_t>(sRows[r]) * ld + h * D + c;
         q = *reinterpret_cast<const uint4*>(row);
         k = *reinterpret_cast<const uint4*>(row + C);
         v = *reinterpret_cast<const uint4*>(row + 2 * C);
@@ -202,10 +240,10 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int j = 0; j < 4; ++j) {
       const int col = h * D + j * 8 + 2 * t;
       if (ra < n)
-        *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(w) * n + ra) * C + col) =
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(sRows[ra]) * C + col) =
             pack2(o[j][0], o[j][1]);
       if (rb < n)
-        *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(w) * n + rb) * C + col) =
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(sRows[rb]) * C + col) =
             pack2(o[j][2], o[j][3]);
     }
   }
@@ -214,21 +252,30 @@ __global__ void __launch_bounds__(NTHREADS)
 }  // namespace
 
 // Launch the window attention of Bw windows on `stream`: qkv (Bw, n, 3C) and
-// out (Bw, n, C) bf16, bias (heads, n, n) f32, mask (nW, n, n) f32 or null.
-// The wrapper (ops/window_attention.py) has checked n <= 64, C == 32 * heads,
-// types and contiguity.  Returns the CUDA error code of the launch.
+// out (Bw, n, C) bf16, bias (heads, n, n) f32, mask (nW, n, n) f32 or null
+// (window w takes mask w mod nW).  With a row table `rows` (nW*n int32, the
+// row of each shifted-window position inside its crop), qkv and out are
+// (Bw/nW*P, 3C) and (Bw/nW*P, C) instead, nW is the windows per crop and P
+// the rows per crop (P >= nW*n).  The wrapper (ops/window_attention.py) has
+// checked n <= 64, C == 32 * heads, the table, types and contiguity.
+// Returns the CUDA error code of the launch.
 extern "C" int mc3d_window_attention(const void* qkv, const void* bias,
-                                     const void* mask, void* out, int Bw, int n,
-                                     int heads, int C, int nW, void* stream) {
+                                     const void* mask, const void* rows, void* out,
+                                     int Bw, int n, int heads, int C, int nW, int P,
+                                     void* stream) {
   if (n > ROWS || C != heads * D || Bw <= 0 || nW <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (rows != nullptr && (Bw % nW != 0 || P < nW * n))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(bf16) * (2 * ROWS * LDQ + D * LDV) +
-                      sizeof(float) * 2 * static_cast<size_t>(n) * n;
+                      sizeof(float) * 2 * static_cast<size_t>(n) * n + sizeof(int) * ROWS;
   // d^-1/2 rounded once to f32, as the plain version's Python float is.
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  window_attention_kernel<<<Bw, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  // Row mode with alignment rows: one more CTA per crop copies their v.
+  const int grid = Bw + (rows != nullptr && P > nW * n ? Bw / nW : 0);
+  window_attention_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), n, heads, C, nW,
-      scale);
+      static_cast<const float*>(mask), static_cast<const int*>(rows),
+      static_cast<bf16*>(out), Bw, n, heads, C, nW, P, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,20 +28,34 @@ window-attention kernel (`packed_window_attention` / `fused_window_attention`);
 plain versions.  The patch-embed conv, PatchMerging's reduction, the
 deconvolutions and the final 1×1 conv stay cuDNN/`torch.matmul`, as the
 JAX package leaves them to XLA.
+
+In ``"block"`` mode the environment variable ``MC3D_SWIN_FIXED``, read at
+every forward with the JAX parsing, picks the layout of the multi-block
+stages: ``"0"`` (the default) the chained window layout above, ``"1"``
+every such stage in fixed order, any other value a comma list of channel
+widths whose stages go fixed.  A fixed stage runs `fixed_partition` →
+`ops.swin_block.fused_swin_stage_fixed` → `fixed_reverse`: tokens stay in
+shift-0 window order for the whole stage and each shifted block reads its
+windows through a row table, so no gather runs between blocks.  The one
+difference from the JAX package: it has no VMEM gate (``feasible_fixed``),
+so ``"1"`` also puts Swin-B's stage 0 in fixed order, where the JAX package
+falls back to the chained layout.  Both layouts compute the same function.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.swin_block import fused_swin_block, prepare_swin_block
-from ..ops.swin_geometry import (device_table, padded_dims, partition_windows,
-                                 rel_position_index, reverse_windows, shift_mask,
-                                 shift_regions, window_roll_perm)
+from ..ops import swin_block as swin_ops
+from ..ops.swin_block import prepare_swin_block
+from ..ops.swin_geometry import (device_table, fixed_partition, fixed_reverse, padded_dims,
+                                 partition_windows, rel_position_index, reverse_windows,
+                                 shift_mask, shift_regions, window_roll_perm)
 from ..ops.window_attention import (fused_window_attention, packed_window_attention,
                                     window_attention_plain)
 
@@ -151,7 +165,7 @@ class SwinBlock(nn.Module):
         ``pre_part=(B, H, W)`` takes this block's window-order tokens and
         ``emit_part`` returns them (pads zeroed), as in the JAX package."""
         if mode == "block":
-            return fused_swin_block(
+            return swin_ops.fused_swin_block(
                 x.to(self.dtype), self.prepared(), heads=self.heads,
                 window=self.window, shift=self.shift, mlp_ratio=self.mlp_ratio,
                 pre_partitioned=pre_part, emit_partitioned=emit_part)
@@ -179,6 +193,13 @@ class PatchMerging(nn.Module):
         x = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 5, 2, 4)
         x = x.reshape(B, H // 2, W // 2, 4 * C)
         return dense(layer_norm(x, self.norm, self.dtype), self.reduction, self.dtype)
+
+
+def fixed_layout(C: int) -> bool:
+    """Whether ``MC3D_SWIN_FIXED`` puts the stage of channel width C in
+    fixed order (the JAX package's parsing)."""
+    env = os.environ.get("MC3D_SWIN_FIXED", "0")
+    return env != "0" if env in ("0", "1") else str(C) in env.split(",")
 
 
 class SwinTransformer(nn.Module):
@@ -217,7 +238,16 @@ class SwinTransformer(nn.Module):
         depths: Sequence[int] = self.cfg["depths"]
         for i, depth in enumerate(depths):
             blocks = [getattr(self, f"stage_{i}_block_{j}") for j in range(depth)]
-            if self.mode == "block" and depth > 1:
+            if self.mode == "block" and depth > 1 and fixed_layout(x.shape[-1]):
+                # Fixed order: the stage's tokens stay in shift-0 window order.
+                B, Hc, Wc, _ = x.shape
+                b0 = blocks[0]
+                xw = swin_ops.fused_swin_stage_fixed(
+                    fixed_partition(x.to(dt), win).contiguous(), [b.prepared() for b in blocks],
+                    heads=b0.heads, window=win, shifts=[b.shift for b in blocks],
+                    mlp_ratio=b0.mlp_ratio, geom=(B, Hc, Wc))
+                x = fixed_reverse(xw, B, Hc, Wc, win)
+            elif self.mode == "block" and depth > 1:
                 # Chained window layout: tokens stay in window order between
                 # the blocks of a stage; one gather per transition.
                 B, Hc, Wc, C = x.shape

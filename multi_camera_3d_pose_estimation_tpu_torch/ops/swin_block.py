@@ -26,6 +26,17 @@ zero-padded map.  In float32 every cast is the identity.
 runs the plain versions on any device.  The TPU kernel's VMEM feasibility
 gate (``feasible_wb``) and its window packing (``wb``/``wa``) have no
 counterpart: ``wb`` and ``wa`` are accepted and ignored.
+
+The fixed-order stage layout (``fused_swin_block_fixed``,
+``fused_swin_stage_fixed``) keeps a stage's tokens in shift-0 window order,
+(B·P, C) with each crop padded to P rows (`swin_geometry.fixed_partition`),
+for every block of the stage.  Its block is the same five launches: the
+products take their rows in any order, and the attention reads a shifted
+block's windows through its row table (`window_attention_rows`).  Validity
+is by original position, the same for every shift; as in the Pallas kernel
+(``zero_pad_out=False``) nothing is zeroed on output, so map-padding and
+alignment rows carry values from block to block that never reach a real
+token (LN1's output is masked by ``valid``).
 """
 
 from __future__ import annotations
@@ -35,17 +46,23 @@ import ctypes
 import torch
 
 from .. import _native
-from .swin_geometry import (device_table, padded_dims, shift_mask, valid_mask, window_partition,
-                            window_reverse)
-from .window_attention import window_attention, window_attention_plain
+from .swin_geometry import (device_table, fixed_rows, fixed_valid, padded_dims, shift_mask,
+                            valid_mask, window_partition, window_reverse, window_roll_perm)
+from .window_attention import (window_attention, window_attention_plain, window_attention_rows,
+                               window_attention_rows_plain)
 
 __all__ = [
     "swin_gemm",
     "swin_gemm_plain",
     "fused_swin_block",
     "swin_block_plain",
+    "fused_swin_block_fixed",
+    "swin_block_fixed_plain",
+    "fused_swin_stage_fixed",
+    "swin_stage_fixed_plain",
     "prepare_swin_block",
     "block_tables",
+    "fixed_tables",
 ]
 
 MODES = {"qkv": 0, "resid": 1, "gelu": 2}
@@ -246,3 +263,88 @@ def swin_block_plain(x: torch.Tensor, p: dict, *, heads: int, window: int, shift
     """`fused_swin_block` through the plain versions, on any device."""
     return _block(x, p, heads, window, shift, mlp_ratio, pre_partitioned, emit_partitioned,
                   swin_gemm_plain, window_attention_plain)
+
+
+def fixed_tables(H: int, W: int, win: int, shift: int, device):
+    """(valid (P,) f32, row table (nW·n,) int32, shift mask (nW, n, n) f32
+    or None when unshifted) of one fixed-order block, on ``device``."""
+    Hp, Wp = padded_dims(H, W, win)
+    valid = device_table(fixed_valid, H, W, win, device=device, dtype=torch.float32)
+    rows = device_table(window_roll_perm, H, W, win, 0, shift, device=device, dtype=torch.int32)
+    mask = None
+    if shift:
+        mask = device_table(shift_mask, Hp, Wp, win, shift, device=device, dtype=torch.float32)
+    return valid, rows, mask
+
+
+def _block_fixed(x, p, heads, window, shift, mlp_ratio, geom, gemm, attn):
+    B, H, W = geom
+    C = x.shape[-1]
+    P = fixed_rows(H, W, window)
+    if tuple(x.shape) != (B * P, C):
+        raise ValueError(f"fixed-order tokens must be {(B * P, C)}, got {tuple(x.shape)}")
+    if p["wfc1"].shape != (mlp_ratio * C, C):
+        raise ValueError(f"fc1 weight {tuple(p['wfc1'].shape)} is not ({mlp_ratio * C}, {C})")
+    valid, rows, mask = fixed_tables(H, W, window, shift, x.device)
+    qkv = gemm("qkv", x, p["wqkv"], p["bqkv"], ln=p["norm1"], valid=valid)
+    ctx = attn(qkv, p["bias"], mask, heads, rows, P)
+    x2 = gemm("resid", ctx, p["wproj"], p["bproj"], res=x)
+    hid = gemm("gelu", x2, p["wfc1"], p["bfc1"], ln=p["norm2"])
+    return gemm("resid", hid, p["wfc2"], p["bfc2"], res=x2)
+
+
+def fused_swin_block_fixed(x: torch.Tensor, p: dict, *, heads: int, window: int, shift: int,
+                           mlp_ratio: int, geom: tuple[int, int, int], cp: int = 1
+                           ) -> torch.Tensor:
+    """Whole SwinBlock on fixed-order tokens x (B·P, C)
+    (`swin_geometry.fixed_partition` of a (B, H, W, C) map, ``geom`` =
+    (B, H, W)); returns the same layout, so the blocks of a stage chain
+    with no layout op between them.  p: `prepare_swin_block`.  Five
+    launches: `swin_gemm` ("qkv" with the period-P valid pattern),
+    `window_attention_rows`, "resid", "gelu", "resid" (nothing zeroed).
+    ``cp`` (crops per TPU program) is accepted and ignored."""
+    del cp
+    return _block_fixed(x, p, heads, window, shift, mlp_ratio, geom, swin_gemm,
+                        window_attention_rows)
+
+
+def swin_block_fixed_plain(x: torch.Tensor, p: dict, *, heads: int, window: int, shift: int,
+                           mlp_ratio: int, geom: tuple[int, int, int], cp: int = 1
+                           ) -> torch.Tensor:
+    """`fused_swin_block_fixed` through the plain versions, on any device."""
+    del cp
+    return _block_fixed(x, p, heads, window, shift, mlp_ratio, geom, swin_gemm_plain,
+                        window_attention_rows_plain)
+
+
+def _stage_fixed(x, plist, heads, window, shifts, mlp_ratio, geom, block):
+    if len(shifts) != len(plist):
+        raise ValueError("shifts and plist must align")
+    for p, shift in zip(plist, shifts):
+        x = block(x, p, heads=heads, window=window, shift=shift, mlp_ratio=mlp_ratio, geom=geom)
+    return x
+
+
+def fused_swin_stage_fixed(x: torch.Tensor, plist: list, *, heads: int, window: int,
+                           shifts: list, mlp_ratio: int, geom: tuple[int, int, int],
+                           cp: int = 1, group: int | None = None) -> torch.Tensor:
+    """A whole fixed-order stage: ``len(plist)`` `fused_swin_block_fixed`
+    on the same (B·P, C) tensor, ``shifts[j]`` for block j, no layout op
+    between blocks.
+
+    ``cp`` and ``group`` (and the JAX package's ``MC3D_SWIN_CP`` and
+    ``MC3D_SWIN_GROUP``) are accepted and ignored: with ``feasible_fixed``,
+    ``feasible_chain_group`` and ``_lanes`` they size TPU programs against a
+    VMEM budget that must hold a (heads, cp·P, cp·P) table and G blocks'
+    weights.  The Hopper block builds no table and is five launches that
+    take any row count, so it needs no feasibility gate, no crop packing
+    and no group size."""
+    del cp, group
+    return _stage_fixed(x, plist, heads, window, shifts, mlp_ratio, geom, fused_swin_block_fixed)
+
+
+def swin_stage_fixed_plain(x: torch.Tensor, plist: list, *, heads: int, window: int,
+                           shifts: list, mlp_ratio: int, geom: tuple[int, int, int]
+                           ) -> torch.Tensor:
+    """`fused_swin_stage_fixed` through the plain versions, on any device."""
+    return _stage_fixed(x, plist, heads, window, shifts, mlp_ratio, geom, swin_block_fixed_plain)

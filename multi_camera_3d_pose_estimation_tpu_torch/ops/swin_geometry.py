@@ -8,7 +8,15 @@ semantics (integer tables equal bit for bit, layouts equal exactly):
   / ``_window_reverse``: an already padded and rolled map);
 - from ``ops/pallas/swin_block.py``: `window_partition` / `window_reverse`
   (pad + roll + partition, the block kernel's token layout),
-  `window_origin_index`, `window_roll_perm` and `valid_mask`.
+  `window_origin_index`, `window_roll_perm` and `valid_mask`; and the
+  fixed-order stage layout: `fixed_geom` (``_fixed_geom``),
+  `fixed_partition` / `fixed_reverse`, with `fixed_rows` and `fixed_valid`.
+
+The fixed order keeps a stage's tokens in shift-0 window order, each crop
+padded to P = ⌈Hp·Wp / 8⌉·8 rows.  A shifted block's windows are then a
+regrouping of those rows: shifted-window position q holds fixed-order row
+``window_roll_perm(H, W, win, 0, shift)[q]`` (the identity for shift 0),
+which is the row table the window attention kernel reads through.
 
 Tables are numpy, computed once per geometry (`functools.lru_cache`);
 `device_table` keeps one copy per device so the forward pass does no
@@ -35,6 +43,11 @@ __all__ = [
     "valid_mask",
     "padded_dims",
     "device_table",
+    "fixed_rows",
+    "fixed_geom",
+    "fixed_valid",
+    "fixed_partition",
+    "fixed_reverse",
 ]
 
 
@@ -151,14 +164,98 @@ def valid_mask(h: int, w: int, hp: int, wp: int, win: int, shift: int) -> np.nda
     return m.transpose(0, 2, 1, 3).reshape(-1, win * win)
 
 
+def fixed_rows(H: int, W: int, win: int) -> int:
+    """P: rows of one crop in fixed order, Hp·Wp rounded up to a multiple of 8."""
+    Hp, Wp = padded_dims(H, W, win)
+    return -(-(Hp * Wp) // 8) * 8
+
+
+@lru_cache(maxsize=None)
+def fixed_geom(H: int, W: int, win: int, shift: int):
+    """(ws, ks, reg, valid, P) of one crop in fixed order, per row q < P:
+    the (shifted) window id, negative and unique on the P − Hp·Wp alignment
+    rows; the position inside that window; the shift region id; 1.0 on
+    real map tokens.  The tests' and plain checks' view of the layout; the
+    kernels read `window_roll_perm` instead."""
+    Hp, Wp = padded_dims(H, W, win)
+    Ww = Wp // win
+    n = win * win
+    nWn = Hp * Wp
+    q = np.arange(nWn)
+    w, k = q // n, q % n
+    gr = (w // Ww) * win + k // win  # padded-grid position (unrolled)
+    gc = (w % Ww) * win + k % win
+    if shift:
+        # The shifted layout rolls by (−shift, −shift): original index g
+        # lands at rolled position (g − shift) mod dim.
+        pr = (gr - shift) % Hp
+        pc = (gc - shift) % Wp
+        img = np.zeros((Hp, Wp), np.int32)
+        cnt = 0
+        for hs in (slice(0, -win), slice(-win, -shift), slice(-shift, None)):
+            for vs in (slice(0, -win), slice(-win, -shift), slice(-shift, None)):
+                img[hs, vs] = cnt
+                cnt += 1
+        reg = img[pr, pc]
+    else:
+        pr, pc = gr, gc
+        reg = np.zeros(nWn, np.int32)
+    ws = (pr // win) * Ww + pc // win
+    ks = (pr % win) * win + pc % win
+    valid = ((gr < H) & (gc < W)).astype(np.float32)
+    P = fixed_rows(H, W, win)
+    pad = P - nWn
+    if pad:
+        ws = np.concatenate([ws, -1 - np.arange(pad)])
+        ks = np.concatenate([ks, np.zeros(pad, ks.dtype)])
+        reg = np.concatenate([reg, np.zeros(pad, np.int32)])
+        valid = np.concatenate([valid, np.zeros(pad, np.float32)])
+    return ws, ks, reg, valid, P
+
+
+@lru_cache(maxsize=None)
+def fixed_valid(H: int, W: int, win: int) -> np.ndarray:
+    """(P,) f32 1.0 on a crop's real tokens in fixed order, 0 on map
+    padding and alignment rows; by original position, so the same for
+    every shift."""
+    return fixed_geom(H, W, win, 0)[3]
+
+
+def fixed_partition(x: torch.Tensor, win: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B·P, C) fixed-order tokens: shift-0 window order,
+    each crop padded with zero rows to P (`fixed_rows`)."""
+    B, H, W, C = x.shape
+    Hp, Wp = padded_dims(H, W, win)
+    P = fixed_rows(H, W, win)
+    xw = window_partition(x, win, 0)
+    if P != Hp * Wp:
+        xw = torch.nn.functional.pad(xw.reshape(B, Hp * Wp, C), (0, 0, 0, P - Hp * Wp))
+    return xw.reshape(-1, C)
+
+
+def fixed_reverse(xw: torch.Tensor, B: int, H: int, W: int, win: int) -> torch.Tensor:
+    """Inverse of `fixed_partition`: (B·P, C) -> (B, H, W, C)."""
+    C = xw.shape[-1]
+    Hp, Wp = padded_dims(H, W, win)
+    P = fixed_rows(H, W, win)
+    if P != Hp * Wp:
+        xw = xw.reshape(B, P, C)[:, :Hp * Wp]
+    return window_reverse(xw.reshape(-1, C), B, H, W, win, 0)
+
+
 _DEVICE_TABLES: dict = {}
 
 
 def device_table(fn, *args, device, dtype=None) -> torch.Tensor:
-    """``torch.as_tensor(fn(*args))`` on ``device``, made once per key."""
+    """``torch.as_tensor(fn(*args))`` on ``device``, made once per key.
+
+    Made with inference mode off, so that a table first asked for under
+    ``torch.inference_mode()`` (the pipeline) can later index tensors that
+    autograd tracks (the model's parameters)."""
     key = (fn.__name__, args, str(device), dtype)
     t = _DEVICE_TABLES.get(key)
     if t is None:
-        t = torch.as_tensor(np.ascontiguousarray(fn(*args)), dtype=dtype, device=device)
+        with torch.inference_mode(False):
+            t = torch.as_tensor(np.ascontiguousarray(fn(*args)), dtype=dtype, device=device)
         _DEVICE_TABLES[key] = t
     return t

@@ -14,12 +14,25 @@ with qkv (Bw, n, 3C) (q | k | v along the last axis, C = heads·d), bias
 takes mask ``w mod nW`` (the partition order is (B, h-windows, w-windows)).
 Returns ctx (Bw, n, C).
 
+`window_attention_rows` is the same attention on the fixed-order stage
+layout (``ops/pallas/swin_block.py::fused_swin_block_fixed`` and
+``fused_swin_stage_fixed``): qkv (B·P, 3C) holds each crop's tokens in
+shift-0 window order, padded to P rows, and window w of crop c = w / nW
+reads and writes token k at row ``c·P + rows[(w mod nW)·n + k]``, where
+``rows`` (nW·n int32) is the block's `swin_geometry.window_roll_perm`.
+The Pallas kernels' full (P, P) table (bias, −100 across wrap regions,
+−1e5 across windows) is exactly this per-window attention; each crop's
+P − nW·n alignment rows attend only to themselves there, so their ctx is
+their own v.  The kernel does the gather and scatter in its own loads and
+stores.
+
 ``csrc/window_attention.cu`` computes each window on its own: the TPU
 kernels' block-diagonal packing of several windows per matrix-unit pass (−1e5 off
 the diagonal, ``wb``) is a workaround for the TPU's matrix unit and is not
 carried over; ``wb`` is accepted and ignored.  `window_attention_plain`
-repeats the kernel's arithmetic in plain PyTorch: the wrapper runs it for a
-CPU tensor, and only there.
+repeats the kernel's arithmetic in plain PyTorch, and
+`window_attention_rows_plain` adds the gather and scatter: the wrappers run
+them for a CPU tensor, and only there.
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ from .swin_geometry import regions_to_mask
 __all__ = [
     "window_attention",
     "window_attention_plain",
+    "window_attention_rows",
+    "window_attention_rows_plain",
     "fused_window_attention",
     "packed_window_attention",
 ]
@@ -44,7 +59,10 @@ MAX_TOKENS = 64  # windows up to 8x8
 
 
 def _check_shapes(qkv, bias, mask, heads):
-    Bw, n, C3 = qkv.shape
+    return _check_tables(*qkv.shape, bias, mask, heads)
+
+
+def _check_tables(Bw, n, C3, bias, mask, heads):
     C = C3 // 3
     if C3 % 3 or C % heads:
         raise ValueError(f"qkv width {C3} is not 3·heads·d for heads={heads}")
@@ -76,11 +94,57 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor, mask, heads: i
     return ctx.transpose(1, 2).reshape(Bw, n, C)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _check_rows(qkv, bias, mask, heads, rows, P):
+    """(B, nW, n, C) of a fixed-order qkv (B·P, 3C) and its row table."""
+    if qkv.dim() != 2 or rows.dim() != 1:
+        raise ValueError(f"qkv must be (B·P, 3C) and rows (nW·n,), got {tuple(qkv.shape)} "
+                         f"and {tuple(rows.shape)}")
+    M, C3 = qkv.shape
+    n = bias.shape[-1]
+    nW = rows.numel() // n
+    if M % P or rows.numel() % n or rows.numel() > P:
+        raise ValueError(f"{M} rows are not crops of P={P} rows holding {rows.numel()} "
+                         f"window tokens of n={n}")
+    if mask is not None and mask.shape[0] != nW:
+        raise ValueError(f"mask has {mask.shape[0]} windows, the row table {nW}")
+    _check_tables(M // P * nW, n, C3, bias, mask, heads)
+    return M // P, nW, n, C3 // 3
 
 
-def _launch(qkv, bias, mask, heads):
-    Bw, n, C = _check_shapes(qkv, bias, mask, heads)
+def _gather_index(rows, P, B):
+    """(B·nW·n,) long: the fixed-order row of each shifted-window token."""
+    base = torch.arange(B, device=rows.device) * P
+    return (base[:, None] + rows.long()[None, :]).reshape(-1)
+
+
+def window_attention_rows_plain(qkv: torch.Tensor, bias: torch.Tensor, mask, heads: int,
+                                rows: torch.Tensor, P: int) -> torch.Tensor:
+    """The row-mode kernel's arithmetic in plain PyTorch: gather the
+    windows, `window_attention_plain`, scatter ctx back; each crop's
+    alignment rows (P − nW·n) take their own v."""
+    B, nW, n, C = _check_rows(qkv, bias, mask, heads, rows, P)
+    idx = _gather_index(rows, P, B)
+    ctx = window_attention_plain(qkv[idx].view(B * nW, n, 3 * C), bias, mask, heads)
+    out = torch.empty((B * P, C), dtype=qkv.dtype, device=qkv.device)
+    out.view(B, P, C)[:, nW * n:] = qkv.view(B, P, 3 * C)[:, nW * n:, 2 * C:]
+    out[idx] = ctx.reshape(-1, C)
+    return out
+
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _launch(qkv, bias, mask, heads, rows=None, P=0):
+    if rows is None:
+        Bw, n, C = _check_shapes(qkv, bias, mask, heads)
+        nW = mask.shape[0] if mask is not None else 1
+        out_shape = (Bw, n, C)
+    else:
+        B, nW, n, C = _check_rows(qkv, bias, mask, heads, rows, P)
+        Bw = B * nW
+        out_shape = (B * P, C)
+        if rows.dtype != torch.int32:
+            raise TypeError(f"rows must be int32, got {rows.dtype}")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"the window attention kernel takes bf16 qkv, got {qkv.dtype}")
     if C // heads != HEAD_DIM:
@@ -88,24 +152,26 @@ def _launch(qkv, bias, mask, heads):
                          f"got {C // heads}")
     if n > MAX_TOKENS:
         raise ValueError(f"the window attention kernel takes windows up to 8x8, got n={n}")
-    for name, t in (("qkv", qkv), ("bias", bias), ("mask", mask)):
+    for name, t in (("qkv", qkv), ("bias", bias), ("mask", mask), ("rows", rows)):
         if t is None:
             continue
         if t.device != qkv.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned on {qkv.device}")
-        if name != "qkv" and t.dtype != torch.float32:
+        if name in ("bias", "mask") and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     fn = _native.library("window_attention").mc3d_window_attention
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    out = torch.empty((Bw, n, C), dtype=qkv.dtype, device=qkv.device)
-    nW = mask.shape[0] if mask is not None else 1
+    out = torch.empty(out_shape, dtype=qkv.dtype, device=qkv.device)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = fn(qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
-                out.data_ptr(), Bw, n, heads, C, nW, stream)
+        rc = fn(qkv.data_ptr(), bias.data_ptr(), ptr(mask), ptr(rows), out.data_ptr(),
+                Bw, n, heads, C, nW, P, stream)
     _native.check(rc, "mc3d_window_attention")
-    window_attention.launches += 1
     return out
 
 
@@ -114,13 +180,36 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask, heads: int) ->
     launches the kernel (or raises); a CPU tensor runs
     `window_attention_plain`."""
     if qkv.device.type == "cuda":
-        return _launch(qkv, bias, mask, heads)
+        out = _launch(qkv, bias, mask, heads)
+        window_attention.launches += 1
+        return out
     if qkv.device.type != "cpu":
         raise ValueError(f"unsupported device {qkv.device}")
     return window_attention_plain(qkv, bias, mask, heads)
 
 
 window_attention.launches = 0
+
+
+def window_attention_rows(qkv: torch.Tensor, bias: torch.Tensor, mask, heads: int,
+                          rows: torch.Tensor, P: int) -> torch.Tensor:
+    """Attention context (B·P, C) of fixed-order qkv (B·P, 3C), windows
+    read through the row table ``rows`` (nW·n int32, a permutation of
+    range(nW·n) such as `swin_geometry.window_roll_perm`: rows inside a
+    crop of P); mask (nW, n, n) f32 or None.  A CUDA tensor launches the
+    kernel in row mode (or raises; a table entry out of range stops the
+    kernel with a device-side assert); a CPU tensor runs
+    `window_attention_rows_plain`."""
+    if qkv.device.type == "cuda":
+        out = _launch(qkv, bias, mask, heads, rows, P)
+        window_attention_rows.launches += 1
+        return out
+    if qkv.device.type != "cpu":
+        raise ValueError(f"unsupported device {qkv.device}")
+    return window_attention_rows_plain(qkv, bias, mask, heads, rows, P)
+
+
+window_attention_rows.launches = 0
 
 
 def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask, heads: int

@@ -5,8 +5,10 @@ T=128 x C=2 frames of 256x256, as the JAX bench's ``bench_swin``), random
 weights from a seed.
 
     python -m multi_camera_3d_pose_estimation_tpu_torch.profile_block [--family swin] [--blocks 2]
+    MC3D_SWIN_FIXED=1 python -m multi_camera_3d_pose_estimation_tpu_torch.profile_block --family swin
 
-Prints the wall time per block, the device's busy share (the sum of CUDA
+(``MC3D_SWIN_FIXED`` reaches the Swin model, which reads it at every
+forward: ``1`` profiles the fixed-order stage layout.)  Prints the wall time per block, the device's busy share (the sum of CUDA
 kernel times over the wall time; the pipeline runs on one stream), the
 time by kernel family and the top kernels, and writes the Chrome trace to
 ``--trace`` (default ``build/profile_block.json``).

@@ -18,7 +18,9 @@ in another order than their plain versions; an output may land on the
 neighbouring bf16 value, and through a whole block (five launches) such
 flips propagate: each launch is held at 2 bf16 steps (2^-7) of its largest
 output, the block at 4 steps, and under 1% of outputs more than one step
-of their own binade apart.
+of their own binade apart.  The attention's row mode (the fixed-order
+layout) and the fixed-order block are held the same way, on a padded map
+whose crops carry alignment rows (12x10, window 7: 196 tokens, P = 200).
 """
 
 import pytest
@@ -28,7 +30,7 @@ from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
 from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
 from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
 from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
-from multi_camera_3d_pose_estimation_tpu_torch.ops.swin_geometry import shift_mask
+from multi_camera_3d_pose_estimation_tpu_torch.ops.swin_geometry import fixed_rows, shift_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +188,38 @@ def test_swin_gemm_refuses_f32(card):
     a = torch.zeros(64, 64, device=card)
     with pytest.raises(TypeError):
         sb.swin_gemm("resid", a, a, torch.zeros(64, device=card), res=a)
+
+
+@pytest.mark.parametrize("shift", [3, 0])
+def test_window_attention_rows_matches_plain(card, shift):
+    """Row mode on a shifted, padded map with 4 alignment rows per crop."""
+    gen = torch.Generator().manual_seed(40 + shift)
+    B, H, W, heads, n = 3, 12, 10, 4, 49
+    P = fixed_rows(H, W, 7)
+    _, rows, mask = sb.fixed_tables(H, W, 7, shift, card)
+    qkv = torch.randn(B * P, 3 * 32 * heads, generator=gen).to(card, torch.bfloat16)
+    bias = torch.randn(heads, n, n, generator=gen).to(card)
+    n0 = wa.window_attention_rows.launches
+    out = wa.window_attention_rows(qkv, bias, mask, heads, rows, P)
+    torch.cuda.synchronize()
+    assert wa.window_attention_rows.launches == n0 + 1
+    _close_bf16(out, wa.window_attention_rows_plain(qkv, bias, mask, heads, rows, P), 2)
+    C = 32 * heads  # alignment rows: exactly their own v
+    assert torch.equal(out.view(B, P, C)[:, 196:], qkv.view(B, P, 3 * C)[:, 196:, 2 * C:])
+    with pytest.raises(TypeError, match="int32"):
+        wa.window_attention_rows(qkv, bias, mask, heads, rows.long(), P)
+
+
+@pytest.mark.parametrize("shift", [3, 0])
+def test_fused_swin_block_fixed_matches_plain(card, shift):
+    from multi_camera_3d_pose_estimation_tpu_torch.ops.swin_geometry import fixed_partition
+    gen = torch.Generator().manual_seed(50 + shift)
+    C, heads = 128, 4
+    p = _swin_params(gen, C, heads, 4, card)
+    x = fixed_partition(torch.randn(3, 12, 10, C, generator=gen), 7).to(card, torch.bfloat16)
+    kw = dict(heads=heads, window=7, shift=shift, mlp_ratio=4, geom=(3, 12, 10))
+    g0, a0 = sb.swin_gemm.launches, wa.window_attention_rows.launches
+    out = sb.fused_swin_block_fixed(x, p, **kw)
+    torch.cuda.synchronize()
+    assert (sb.swin_gemm.launches - g0, wa.window_attention_rows.launches - a0) == (4, 1)
+    _close_bf16(out, sb.swin_block_fixed_plain(x, p, **kw), 4)

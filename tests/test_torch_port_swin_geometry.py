@@ -79,3 +79,19 @@ def test_roll_perm_chains_layouts():
     perm = torch.from_numpy(geo.window_roll_perm(H, W, win, 0, 2))
     # Pads are zero in both layouts, so the gather reproduces the re-pad.
     torch.testing.assert_close((a * valid[None, :, None])[:, perm], b, rtol=0, atol=0)
+
+
+def _probe_index(n):
+    """A table no other test asks `device_table` for."""
+    return np.arange(n) % 5
+
+
+def test_device_table_made_under_inference_mode_serves_autograd():
+    """A table first asked for inside ``torch.inference_mode()`` (as the
+    pipeline does) can later index a parameter that autograd tracks."""
+    with torch.inference_mode():
+        idx = geo.device_table(_probe_index, 9, device="cpu", dtype=torch.long)
+    assert not idx.is_inference()
+    table = torch.nn.Parameter(torch.ones(5, 2))
+    table[idx].sum().backward()
+    assert table.grad is not None and table.grad.sum() == 9 * 2
