@@ -23,11 +23,16 @@ Phases (each synchronises the card; any failure exits non-zero):
    T=128 frames of 256x256 (256 crops), every SwinBlock through the
    swin_gemm and window-attention kernels, random weights from a seed.  One
    warm-up block, then the counts are set to 0, a few blocks run and the
-   counts are read (96 swin_gemm, 24 window-attention and 1 decode launch
+   counts are read (96 swin_gemm product launches, 48 of them after a
+   LayerNorm row-kernel launch, 24 window-attention and 1 decode launch
    per block); frames/s and the output checks are printed;
 7. one SwinBlock of each stage against its plain version, on the inputs
-   the main path gave it (captured by a forward pre-hook), and the window
-   attention of each stage against its plain version, with kernel, plain
+   the main path gave it (captured by a forward pre-hook); each of its four
+   token products (qkv, proj, fc1, fc2) on that block's own operands
+   against `swin_gemm_plain`, with kernel and cuBLAS product times, the
+   host's time per call and the bound over the real rows; and the window
+   attention of each stage
+   against its plain version, with kernel, plain
    and library (``scaled_dot_product_attention``) times and the bounds
    (from the map's real tokens: window padding needs no work); the
    attention again on the same qkv with a bias of trained scale, with
@@ -37,13 +42,15 @@ Phases (each synchronises the card; any failure exits non-zero):
    fixed order (tokens in shift-0 window order for the whole stage, each
    shifted block's attention reading its windows through a row table).  A
    warm-up block, then the counts are set to 0, a few blocks run and the
-   counts are read (96 swin_gemm, 24 row-mode attention, 0 chained-layout
-   attention and 1 decode launch per block); spies show that every stage
+   counts are read (96 swin_gemm and 48 LayerNorm row-kernel launches, 24
+   row-mode attention, 0 chained-layout attention and 1 decode launch per
+   block); spies show that every stage
    ran `fused_swin_stage_fixed` and the chained `fused_swin_block` never;
 10. the first shifted fixed-order block of each stage (captured on the main
    path) against its plain version and against the chained
-   `fused_swin_block` on the same map, its row-mode attention against its
-   plain version (again with an N(0, 1) bias, with controls: the identity
+   `fused_swin_block` on the same map, its four token products as in 7,
+   its row-mode attention against its plain version (again with an
+   N(0, 1) bias, with controls: the identity
    row table, no mask, the next head's bias), and each whole stage against
    its plain version and against its blocks one by one, with kernel,
    plain, chained and SDPA times and the bounds;
@@ -96,6 +103,10 @@ N_SWIN_BLOCKS = 3
 # of depth blocks, where each block's flips carry into the next: depth x 4
 # steps of its largest output.
 SWIN_BLOCK_REL_TOL, SWIN_ROW_FLIP_SHARE, ATTN_REL_TOL = 4 * 2.0 ** -8, 1e-3, 2 * 2.0 ** -8
+# One token product alone (swin_gemm, one launch): 2 bf16 steps of its
+# largest output, as the attention core.
+PRODUCT_REL_TOL = 2 * 2.0 ** -8
+PRODUCTS = ("qkv", "proj", "fc1", "fc2")  # a block's swin_gemm calls, in order
 
 
 def log(*args):
@@ -246,12 +257,14 @@ def run_swin_main_path(dev, gen) -> dict:
                 "heatmap_decode": fd.heatmap_decode_raw}
     for fn in counters.values():
         fn.launches = 0
+    sb.swin_gemm.ln_launches = 0
     t0 = time.perf_counter()
     for i in range(N_SWIN_BLOCKS):
         out = pipe.run(blocks_u8[i % 2])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["swin_gemm_ln"] = sb.swin_gemm.ln_launches
     fps = SWIN_T * N_SWIN_BLOCKS / dt
     log(f"Swin-B main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) in "
         f"{dt:.3f} s -> {fps:.1f} multi-camera frames/s; launches {launches}")
@@ -259,9 +272,11 @@ def run_swin_main_path(dev, gen) -> dict:
         check(n > 0, f"kernel {name} was not launched on the Swin main path")
     n_blocks = sum(SWIN_B["depths"])
     check(launches == {"swin_gemm": 4 * n_blocks * N_SWIN_BLOCKS,
+                       "swin_gemm_ln": 2 * n_blocks * N_SWIN_BLOCKS,
                        "window_attention": n_blocks * N_SWIN_BLOCKS,
                        "heatmap_decode": N_SWIN_BLOCKS},
-          "96 swin_gemm, 24 window-attention and 1 decode launch per block")
+          "96 swin_gemm product launches (48 after a LayerNorm row-kernel launch), "
+          "24 window-attention and 1 decode launch per block")
     check_outputs(out, pipe, SWIN_T)
     return {"pipe": pipe, "frames": blocks_u8[0], "blocks": blocks_u8, "fps": fps,
             "launches": launches}
@@ -296,6 +311,7 @@ def run_fixed_main_path(swin: dict) -> dict:
         setattr(sb, name, spy(name))
     for fn in counters.values():
         fn.launches = 0
+    sb.swin_gemm.ln_launches = 0
     t0 = time.perf_counter()
     for i in range(N_SWIN_BLOCKS):
         out = pipe.run(blocks_u8[i % 2])
@@ -304,6 +320,7 @@ def run_fixed_main_path(swin: dict) -> dict:
     for name, fn in originals.items():
         setattr(sb, name, fn)
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["swin_gemm_ln"] = sb.swin_gemm.ln_launches
     fps = SWIN_T * N_SWIN_BLOCKS / dt
     log(f"Swin-B fixed-order main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) "
         f"in {dt:.3f} s -> {fps:.1f} multi-camera frames/s (chained layout {swin['fps']:.1f}); "
@@ -311,10 +328,11 @@ def run_fixed_main_path(swin: dict) -> dict:
         f"blocks {calls['fused_swin_block']}")
     n_blocks = sum(SWIN_B["depths"])
     check(launches == {"swin_gemm": 4 * n_blocks * N_SWIN_BLOCKS,
+                       "swin_gemm_ln": 2 * n_blocks * N_SWIN_BLOCKS,
                        "window_attention_rows": n_blocks * N_SWIN_BLOCKS,
                        "window_attention": 0, "heatmap_decode": N_SWIN_BLOCKS},
-          "96 swin_gemm, 24 row-mode attention, 0 chained attention and 1 decode launch per "
-          "block on the fixed-order path")
+          "96 swin_gemm product and 48 LayerNorm row-kernel launches, 24 row-mode attention, "
+          "0 chained attention and 1 decode launch per block on the fixed-order path")
     widths = [SWIN_B["embed"] * 2 ** i for i in range(len(SWIN_B["depths"]))]
     check(calls["fused_swin_stage_fixed"] == widths * N_SWIN_BLOCKS,
           "every stage ran fused_swin_stage_fixed")
@@ -370,6 +388,87 @@ def sdpa_library(qkv, bias, mask, heads: int):
         add = add.reshape(Bw, heads, n, n)
     add = add.to(qkv.dtype).contiguous()
     return (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add)), add
+
+
+def capture_products(run_block) -> dict:
+    """The arguments of the four `swin_gemm` calls that ``run_block()``
+    makes (one SwinBlock), by product name, recorded by a stand-in for
+    ``swin_block.swin_gemm`` that passes each call on."""
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
+
+    calls, original = [], sb.swin_gemm
+
+    def record(mode, a, w, b, res=None, ln=None, valid=None):
+        calls.append((mode, a, w, b, res, ln, valid))
+        return original(mode, a, w, b, res=res, ln=ln, valid=valid)
+
+    record.launches = record.ln_launches = 0  # the wrapper counts on whatever swin_gemm names
+    sb.swin_gemm = record
+    try:
+        run_block()
+    finally:
+        sb.swin_gemm = original
+    check(len(calls) == len(PRODUCTS), "a SwinBlock makes four swin_gemm calls")
+    return dict(zip(PRODUCTS, calls))
+
+
+def check_products(calls: dict, real: int, label: str) -> dict:
+    """Each token product of one block on its own operands: the kernel
+    against `swin_gemm_plain` within PRODUCT_REL_TOL of its largest output,
+    its time, the bound over the ``real`` rows (one read of their operand
+    and residual, the weights and tables, one write of their output, against
+    their bf16 operations), the host's time per call (the wrapper and its
+    launches, while the card runs the calls before) and, as a yardstick,
+    cuBLAS ``F.linear`` on the same (M, K) x (N, K) operands: the product
+    alone, no LN prologue or epilogue (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
+
+    rows = {}
+    for name, (mode, a, w, b, res, ln, valid) in calls.items():
+        kw = dict(res=res, ln=ln, valid=valid)
+        out = sb.swin_gemm(mode, a, w, b, **kw)
+        ref = sb.swin_gemm_plain(mode, a, w, b, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        del out, ref
+        (M, K), N = a.shape, w.shape[0]
+        flops = 2 * real * N * K
+        tables = sum(t.numel() * t.element_size() for t in (b, valid, *(ln or ())) if t is not None)
+        nbytes = real * (K + N * (2 if res is not None else 1)) * 2 + w.numel() * 2 + tables
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sb.swin_gemm(mode, a, w, b, **kw)
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        r = {"ms": cuda_ms(lambda: sb.swin_gemm(mode, a, w, b, **kw), 20), "host_ms": host_ms,
+             "library_ms": cuda_ms(lambda: F.linear(a, w), 20),
+             "bound": max(t_ops, t_bytes) * 1e3,
+             "by": "operations" if t_ops >= t_bytes else "bytes",
+             "computed_tflop": 2 * M * N * K / 1e12, "err": err}
+        log(f"  {label} {name} ({mode}) ({M}, {K}) x ({N}, {K}): max |kernel - plain| {err:.6g} "
+            f"(tolerance {PRODUCT_REL_TOL} x {scale:.4g}); kernel {r['ms']:.4f} ms "
+            f"({r['computed_tflop'] / r['ms'] * 1e3:.1f} TFLOP/s on the {M} rows computed), cuBLAS "
+            f"product alone {r['library_ms']:.4f} ms; bound {r['bound']:.4f} ms by {r['by']} "
+            f"({real} real rows); host {host_ms:.4f} ms per call")
+        check(err <= PRODUCT_REL_TOL * scale,
+              f"{label} {name}: the swin_gemm kernel agrees with its plain version")
+        rows[name] = r
+    return rows
+
+
+def products_keys(stage_products: list) -> dict:
+    """Per forward (sum over stages of depth x one block's four products):
+    kernel, cuBLAS product, bound and host ms, for the kernels JSON line."""
+    def per_forward(key):
+        return sum(depth * sum(r[key] for r in prods.values()) for depth, prods in stage_products)
+    return {"products_ms": per_forward("ms"), "products_library_ms": per_forward("library_ms"),
+            "products_bound_ms": per_forward("bound"), "products_host_ms": per_forward("host_ms"),
+            "products_note": "the four swin_gemm products per forward; library: cuBLAS "
+                             "F.linear, the product alone, no LN prologue or epilogue"}
 
 
 def total(rows, key):
@@ -436,7 +535,7 @@ def check_swin_kernels(swin: dict, dev) -> list:
         torch.cuda.synchronize()
         for h in hooks:
             h.remove()
-        stages, attn_stages = [], []
+        stages, attn_stages, products = [], [], []
         for i, depth in enumerate(cfg["depths"]):
             blk = getattr(model.backbone, f"stage_{i}_block_1")
             x, kw = captured[i]
@@ -466,6 +565,8 @@ def check_swin_kernels(swin: dict, dev) -> list:
             check(err <= SWIN_BLOCK_REL_TOL * scale and row_share <= SWIN_ROW_FLIP_SHARE,
                   f"Swin stage {i}: the block kernels agree with their plain version")
             stages.append(dict(t, depth=depth, err=err, bound=bound, by=by))
+            calls = capture_products(lambda: sb.fused_swin_block(x, p, **args))
+            products.append((depth, check_products(calls, real, f"stage {i}")))
 
             # The attention core on this block's own qkv.
             valid, mask = sb.block_tables(Hc, Wc, blk.window, blk.shift, dev)
@@ -510,8 +611,11 @@ def check_swin_kernels(swin: dict, dev) -> list:
 
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     launches = swin["launches"]
+    pk = products_keys(products)
     log("Swin totals per forward (sum over stages of depth x one block): blocks kernel "
-        f"{total(stages, 'ms'):.4f} ms, bound {total(stages, 'bound'):.4f} ms; attention kernel "
+        f"{total(stages, 'ms'):.4f} ms, bound {total(stages, 'bound'):.4f} ms; token products "
+        f"{pk['products_ms']:.4f} ms, cuBLAS products alone {pk['products_library_ms']:.4f} ms, "
+        f"bound {pk['products_bound_ms']:.4f} ms; attention kernel "
         f"{total(attn_stages, 'ms'):.4f} ms, SDPA {total(attn_stages, 'library_ms'):.4f} ms, "
         f"bound {total(attn_stages, 'bound'):.4f} ms")
     return [
@@ -519,9 +623,11 @@ def check_swin_kernels(swin: dict, dev) -> list:
          "source": f"{PORT}/csrc/swin_gemm.cu + {PORT}/csrc/window_attention.cu",
          "replaces": f"{here}/swin_block.py:704 (fused_swin_block, pallas_call :833)",
          "launches": launches["swin_gemm"] + launches["window_attention"],
+         "ln_launches": launches["swin_gemm_ln"],
          "max_abs_err": max(r["err"] for r in stages),
          "ms": total(stages, "ms"), "plain_ms": total(stages, "plain_ms"),
          "bound_ms": total(stages, "bound"), "bound_by": rows_bound_by(stages), "library_ms": None,
+         **products_keys(products),
          "per_forward": f"{sum(cfg['depths'])} blocks: sum over stages of depth x one block "
                         "of the main path"},
         {"name": "window_attention", "route": "cuda",
@@ -576,7 +682,7 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
     for name, fn in originals.items():
         setattr(sb, name, fn)
     bias_gen = torch.Generator().manual_seed(8)
-    blocks, attns, stages = [], [], []
+    blocks, attns, stages, products = [], [], [], []
     with torch.inference_mode():
         for i, depth in enumerate(cfg["depths"]):
             C_ = cfg["embed"] * 2 ** i
@@ -621,6 +727,8 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
             check(cerr <= SWIN_BLOCK_REL_TOL * cscale and crow_share <= SWIN_ROW_FLIP_SHARE,
                   f"fixed stage {i}: the fixed-order block agrees with the chained block")
             blocks.append(dict(t, depth=depth, err=err, bound=bound, by=bby))
+            calls = capture_products(lambda: sb.fused_swin_block_fixed(x, p, **kw))
+            products.append((depth, check_products(calls, real, f"fixed stage {i}")))
 
             # The row-mode attention on this block's own qkv.
             qkv = sb.swin_gemm("qkv", x, p["wqkv"], p["bqkv"], ln=p["norm1"], valid=valid)
@@ -705,8 +813,12 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
 
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     launches = fixed["launches"]["swin_gemm"] + fixed["launches"]["window_attention_rows"]
+    ln_launches = fixed["launches"]["swin_gemm_ln"]
+    pk = products_keys(products)
     log("fixed-order Swin totals per forward (sum over stages of depth x one block): blocks "
         f"kernel {total(blocks, 'ms'):.4f} ms (chained layout {total(blocks, 'chained_ms'):.4f}),"
+        f" token products {pk['products_ms']:.4f} ms (cuBLAS products alone "
+        f"{pk['products_library_ms']:.4f}, bound {pk['products_bound_ms']:.4f}),"
         f" bound {total(blocks, 'bound'):.4f} ms; stages kernel {total(stages, 'ms'):.4f} ms; "
         f"row-mode attention {total(attns, 'ms'):.4f} ms (chained layout "
         f"{total(attns, 'chained_ms'):.4f}), SDPA {total(attns, 'library_ms'):.4f} ms, bound "
@@ -715,9 +827,11 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
     return [
         {"name": "swin_block_fixed", "route": "cuda", "source": src,
          "replaces": f"{here}/swin_block.py:473 (fused_swin_block_fixed, pallas_call :528)",
-         "launches": launches, "max_abs_err": max(r["err"] for r in blocks),
+         "launches": launches, "ln_launches": ln_launches,
+         "max_abs_err": max(r["err"] for r in blocks),
          "ms": total(blocks, "ms"), "plain_ms": total(blocks, "plain_ms"),
          "bound_ms": total(blocks, "bound"), "bound_by": rows_bound_by(blocks), "library_ms": None,
+         **products_keys(products),
          "chained_ms": total(blocks, "chained_ms"),
          "attention_ms": total(attns, "ms"), "attention_bound_ms": total(attns, "bound"),
          "attention_sdpa_ms": total(attns, "library_ms"),
@@ -726,7 +840,8 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
                         "of the fixed-order main path"},
         {"name": "swin_stage_fixed", "route": "cuda", "source": src,
          "replaces": f"{here}/swin_block.py:379 (fused_swin_stage_fixed, pallas_call :452)",
-         "launches": launches, "max_abs_err": max(r["err"] for r in stages),
+         "launches": launches, "ln_launches": ln_launches,
+         "max_abs_err": max(r["err"] for r in stages),
          "ms": total(stages, "ms"), "plain_ms": total(stages, "plain_ms"),
          "bound_ms": total(stages, "bound"), "bound_by": rows_bound_by(stages), "library_ms": None,
          "per_forward": f"{len(cfg['depths'])} stages of the fixed-order main path, each whole"},

@@ -15,11 +15,15 @@ window-order tokens xw (B·nW·n, C), with the Pallas kernel's cast points
     h   = bf16(gelu_erf(f32(LN2(x2) @ Wfc1) + bfc1))               swin_gemm, LN prologue
     out = x2 + bf16(bf16(h @ Wfc2) + bf16(bfc2))  [· valid]        swin_gemm, residual
 
-LN: f32 statistics, var = E[x²] − E[x]², eps 1e-5.  ``valid`` is 1 on real
-tokens and 0 on window padding: pad tokens enter qkv as exact zeros (mmcv
-pads the LN1 output), and with ``emit_partitioned`` they leave as exact
-zeros, so the next block's `window_roll_perm` gather sees a freshly
-zero-padded map.  In float32 every cast is the identity.
+LN: f32 statistics, var = E[x²] − E[x]², eps 1e-5; an LN mode's call
+launches a row kernel that normalises each row once into a scratch
+operand, then the product (``swin_gemm.launches`` counts the product's
+launch, ``swin_gemm.ln_launches`` the row kernel's).
+``valid`` is 1 on real tokens and 0 on window padding: pad tokens enter
+qkv as exact zeros (mmcv pads the LN1 output), and with
+``emit_partitioned`` they leave as exact zeros, so the next block's
+`window_roll_perm` gather sees a freshly zero-padded map.  In float32
+every cast is the identity.
 
 `swin_gemm` and `window_attention` launch their kernels for a CUDA tensor
 (or raise) and run their plain versions for a CPU tensor; `swin_block_plain`
@@ -67,7 +71,6 @@ __all__ = [
 
 MODES = {"qkv": 0, "resid": 1, "gelu": 2}
 EPS = 1e-5
-MAX_ROWS = 65535 * 128  # the kernel's grid: 128-row tiles along gridDim.y
 
 
 def _layer_norm_rows(a: torch.Tensor, ln) -> torch.Tensor:
@@ -109,7 +112,7 @@ def swin_gemm_plain(mode: str, a: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     raise ValueError(f"unknown mode {mode!r}")
 
 
-_GEMM_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+_GEMM_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                   + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -119,10 +122,9 @@ def _launch_gemm(mode, a, w, b, res, ln, valid):
     if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"the swin_gemm kernel takes bf16 tokens and weights, got "
                         f"{a.dtype} and {w.dtype}")
-    if w.shape[1] != K or N % 8 or K % 32 or M > MAX_ROWS:
-        raise ValueError(f"the swin_gemm kernel needs W (N, K) with N % 8 == 0, K % 32 == 0 "
-                         f"and at most {MAX_ROWS} rows; got tokens {tuple(a.shape)}, "
-                         f"W {tuple(w.shape)}")
+    if w.shape[1] != K or N % 8 or K % 32:
+        raise ValueError(f"the swin_gemm kernel needs W (N, K) with N % 8 == 0 and K % 32 == 0; "
+                         f"got tokens {tuple(a.shape)}, W {tuple(w.shape)}")
     tensors = {"a": a, "w": w, "b": b, "res": res, "valid": valid}
     if ln is not None:
         tensors.update(ln_w=ln[0], ln_b=ln[1])
@@ -142,6 +144,8 @@ def _launch_gemm(mode, a, w, b, res, ln, valid):
     fn.argtypes = _GEMM_ARGTYPES
     fn.restype = ctypes.c_int
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    # LN modes: the kernel's operand bf16(LN(a)·valid), normalised once per row.
+    a_ln = torch.empty_like(a) if ln is not None else None
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -150,10 +154,12 @@ def _launch_gemm(mode, a, w, b, res, ln, valid):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(MODES[mode], a.data_ptr(), w.data_ptr(), b.data_ptr(), ptr(res),
                 ptr(ln[0]) if ln is not None else None, ptr(ln[1]) if ln is not None else None,
-                ptr(valid), out.data_ptr(), M, N, K,
+                ptr(valid), ptr(a_ln), out.data_ptr(), M, N, K,
                 valid.numel() if valid is not None else 0, EPS, stream)
     _native.check(rc, "mc3d_swin_gemm")
     swin_gemm.launches += 1
+    if ln is not None:
+        swin_gemm.ln_launches += 1
     return out
 
 
@@ -172,6 +178,7 @@ def swin_gemm(mode: str, a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 swin_gemm.launches = 0
+swin_gemm.ln_launches = 0
 
 
 def prepare_swin_block(block, dtype: torch.dtype) -> dict:

@@ -33,11 +33,11 @@ PIPELINES = {"hrnet": (HRNET_W32, 256), "swin": (SWIN_B, 128)}
 
 # Substrings of CUDA kernel names -> the family a kernel's time is filed under,
 # first match wins: the port's own kernels come before the library families
-# ("swin_gemm_kernel" contains "gemm").
+# ("swin_gemm_kernel" and "swin_gemm_ln_kernel" contain "gemm").
 FAMILIES = (
     ("bottleneck_kernel", "stage-1 Bottleneck kernel (ours)"),
     ("decode_kernel", "heatmap decode kernel (ours)"),
-    ("swin_gemm_kernel", "Swin token GEMMs (ours)"),
+    ("swin_gemm", "Swin token GEMMs (ours)"),
     ("window_attention_kernel", "window attention kernel (ours)"),
     ("conv", "convolution (cuDNN)"), ("xmma", "convolution (cuDNN)"),
     ("implicit_convolve", "convolution (cuDNN)"), ("sm90_", "convolution/GEMM (cuDNN/cuBLAS)"),

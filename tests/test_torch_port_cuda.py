@@ -117,8 +117,15 @@ def _swin_params(gen, C, heads, ratio, device):
     return p
 
 
+# The kernel's edges: K = 96 (Swin-T, not a multiple of the 64-deep stage),
+# K = 4096 (Swin-B stage-3 fc2), N not a multiple of the 128-column tile (and
+# under one 64-column half), M not a multiple of the 128-row tile, and the
+# fixed-order valid period (P = 200 rows of a 12x10 map, window 7).
 @pytest.mark.parametrize("mode,M,K,N", [("qkv", 4 * 49 * 6, 128, 384), ("resid", 999, 256, 256),
-                                        ("gelu", 1000, 64, 256), ("resid", 130, 1024, 96)])
+                                        ("gelu", 1000, 64, 256), ("resid", 130, 1024, 96),
+                                        ("qkv", 3 * 200, 96, 288), ("gelu", 777, 96, 384),
+                                        ("resid", 3000, 4096, 1024), ("gelu", 513, 256, 200),
+                                        ("resid", 4 * 200, 128, 72), ("qkv", 2 * 200, 64, 40)])
 def test_swin_gemm_matches_plain(card, mode, M, K, N):
     gen = torch.Generator().manual_seed(M + K)
     a = torch.randn(M, K, generator=gen).to(card, torch.bfloat16)
@@ -132,10 +139,12 @@ def test_swin_gemm_matches_plain(card, mode, M, K, N):
         res = torch.randn(M, N, generator=gen).to(card, torch.bfloat16)
     if mode != "gelu" and M % 49 == 0:
         valid = (torch.rand(49 * 6, generator=gen) > 0.3).float().to(card)
-    n = sb.swin_gemm.launches
+    elif mode != "gelu" and M % 200 == 0:
+        valid = sb.fixed_tables(12, 10, 7, 0, card)[0]
+    n, n_ln = sb.swin_gemm.launches, sb.swin_gemm.ln_launches
     out = sb.swin_gemm(mode, a, w, b, res=res, ln=ln, valid=valid)
     torch.cuda.synchronize()
-    assert sb.swin_gemm.launches == n + 1
+    assert (sb.swin_gemm.launches, sb.swin_gemm.ln_launches) == (n + 1, n_ln + (ln is not None))
     _close_bf16(out, sb.swin_gemm_plain(mode, a, w, b, res=res, ln=ln, valid=valid), 2)
 
 
@@ -182,6 +191,22 @@ def test_fused_swin_block_matches_plain(card, H, W, shift, part):
     _close_bf16(out, ref, 4)
     if part:  # pad tokens leave as exact zeros
         assert torch.equal(out[ref.abs().sum(-1) == 0], ref[ref.abs().sum(-1) == 0])
+
+
+def test_swin_gemm_qkv_pad_rows_are_bias(card):
+    """Rows with valid == 0 enter qkv as exact zeros: their output is bf16(b)."""
+    gen = torch.Generator().manual_seed(7)
+    valid = sb.fixed_tables(12, 10, 7, 3, card)[0]  # P = 200: 120 real rows, 80 padding
+    a = torch.randn(3 * 200, 128, generator=gen).to(card, torch.bfloat16)
+    w = (torch.randn(384, 128, generator=gen) / 128 ** 0.5).to(card, torch.bfloat16)
+    b = (0.1 * torch.randn(384, generator=gen)).to(card)
+    ln = ((1 + 0.2 * torch.randn(128, generator=gen)).to(card),
+          (0.1 * torch.randn(128, generator=gen)).to(card))
+    out = sb.swin_gemm("qkv", a, w, b, ln=ln, valid=valid)
+    torch.cuda.synchronize()
+    pad = valid.repeat(3) == 0
+    assert int(pad.sum()) == 3 * 80
+    assert torch.equal(out[pad], b.to(torch.bfloat16).expand(int(pad.sum()), -1))
 
 
 def test_swin_gemm_refuses_f32(card):

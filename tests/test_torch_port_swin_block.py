@@ -60,10 +60,36 @@ def test_block_matches_pallas_block_f32(H, W, shift, part):
 def test_fused_block_on_cpu_is_the_plain_block():
     _, p, x = _pair(12, 10, 3, seed=9)
     xt = torch.from_numpy(x)
-    launches = (sb.swin_gemm.launches, wa.window_attention.launches)
+    launches = (sb.swin_gemm.launches, sb.swin_gemm.ln_launches, wa.window_attention.launches)
     got = sb.fused_swin_block(xt, p, heads=HEADS, window=WIN, shift=3, mlp_ratio=RATIO, wb=8)
-    assert (sb.swin_gemm.launches, wa.window_attention.launches) == launches
+    assert (sb.swin_gemm.launches, sb.swin_gemm.ln_launches,
+            wa.window_attention.launches) == launches
     want = sb.swin_block_plain(xt, p, heads=HEADS, window=WIN, shift=3, mlp_ratio=RATIO)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["qkv", "resid", "gelu"])
+def test_swin_gemm_on_cpu_is_plain_and_counts_nothing(mode):
+    """A CPU tensor runs `swin_gemm_plain` and counts no product launch and
+    no LayerNorm row-kernel launch."""
+    rng = np.random.default_rng(5)
+    M, K, N = 2 * 49, 64, 96
+    a = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) / 8).to(torch.bfloat16)
+    b = torch.from_numpy(rng.normal(size=N).astype(np.float32) / 10)
+    ln = res = valid = None
+    if mode == "resid":
+        res = torch.from_numpy(rng.normal(size=(M, N)).astype(np.float32)).to(torch.bfloat16)
+    else:
+        ln = (torch.from_numpy(1 + rng.normal(size=K).astype(np.float32) / 5),
+              torch.from_numpy(rng.normal(size=K).astype(np.float32) / 10))
+    if mode != "gelu":
+        valid = torch.from_numpy((rng.random(49) > 0.3).astype(np.float32))
+    counts = (sb.swin_gemm.launches, sb.swin_gemm.ln_launches)
+    got = sb.swin_gemm(mode, a, w, b, res=res, ln=ln, valid=valid)
+    assert (sb.swin_gemm.launches, sb.swin_gemm.ln_launches) == counts
+    want = sb.swin_gemm_plain(mode, a, w, b, res=res, ln=ln, valid=valid)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, N)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
