@@ -31,10 +31,10 @@ Phases (each synchronises the card; any failure exits non-zero):
    token products (qkv, proj, fc1, fc2) on that block's own operands
    against `swin_gemm_plain`, with kernel and cuBLAS product times, the
    host's time per call and the bound over the real rows; and the window
-   attention of each stage
-   against its plain version, with kernel, plain
-   and library (``scaled_dot_product_attention``) times and the bounds
-   (from the map's real tokens: window padding needs no work); the
+   attention of each stage against its plain version, with kernel, plain
+   and library (``scaled_dot_product_attention``) times, the host's time
+   per call and the bounds (from the map's real tokens: window padding
+   needs no work) with the kernel's share of its bound; the
    attention again on the same qkv with a bias of trained scale, with
    controls showing that a wrong bias or mask fails its tolerance;
 8. a small Swin pipeline on the card against the plain CPU path;
@@ -53,7 +53,9 @@ Phases (each synchronises the card; any failure exits non-zero):
    N(0, 1) bias, with controls: the identity
    row table, no mask, the next head's bias), and each whole stage against
    its plain version and against its blocks one by one, with kernel,
-   plain, chained and SDPA times and the bounds;
+   plain, chained and SDPA times and the bounds (the row-mode and
+   chained-layout attention timed in turns, with the host's time per call
+   and the share of the bound);
 11. a small fixed-order Swin pipeline on the card against the plain CPU path;
 12. one JSON line with every kernel, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
@@ -69,6 +71,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PORT = "multi_camera_3d_pose_estimation_tpu_torch"
@@ -131,6 +134,18 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def host_ms(fn, n=20):
+    """Mean host ms per call of ``fn`` over ``n`` calls after a synchronise:
+    the wrapper and its launch, while the card runs the calls before."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e3
 
 
 def bf16_steps_apart(a, ref):
@@ -439,12 +454,8 @@ def check_products(calls: dict, real: int, label: str) -> dict:
         tables = sum(t.numel() * t.element_size() for t in (b, valid, *(ln or ())) if t is not None)
         nbytes = real * (K + N * (2 if res is not None else 1)) * 2 + w.numel() * 2 + tables
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            sb.swin_gemm(mode, a, w, b, **kw)
-        host_ms = (time.perf_counter() - t0) / 20 * 1e3
-        r = {"ms": cuda_ms(lambda: sb.swin_gemm(mode, a, w, b, **kw), 20), "host_ms": host_ms,
+        call = partial(sb.swin_gemm, mode, a, w, b, **kw)
+        r = {"ms": cuda_ms(call, 20), "host_ms": host_ms(call),
              "library_ms": cuda_ms(lambda: F.linear(a, w), 20),
              "bound": max(t_ops, t_bytes) * 1e3,
              "by": "operations" if t_ops >= t_bytes else "bytes",
@@ -453,7 +464,7 @@ def check_products(calls: dict, real: int, label: str) -> dict:
             f"(tolerance {PRODUCT_REL_TOL} x {scale:.4g}); kernel {r['ms']:.4f} ms "
             f"({r['computed_tflop'] / r['ms'] * 1e3:.1f} TFLOP/s on the {M} rows computed), cuBLAS "
             f"product alone {r['library_ms']:.4f} ms; bound {r['bound']:.4f} ms by {r['by']} "
-            f"({real} real rows); host {host_ms:.4f} ms per call")
+            f"({real} real rows); host {r['host_ms']:.4f} ms per call")
         check(err <= PRODUCT_REL_TOL * scale,
               f"{label} {name}: the swin_gemm kernel agrees with its plain version")
         rows[name] = r
@@ -581,15 +592,17 @@ def check_swin_kernels(swin: dict, dev) -> list:
             ascale = pa.float().abs().max().item()
             lerr = (la.float() - pa.float()).abs().max().item()
             abound, aby = attention_bound(qkv.shape[0], n, C_, p["bias"], mask, real)
-            ta = {"ms": cuda_ms(lambda: wa.window_attention(qkv, p["bias"], mask, blk.heads), 20),
+            call = partial(wa.window_attention, qkv, p["bias"], mask, blk.heads)
+            ta = {"ms": cuda_ms(call, 20), "host_ms": host_ms(call),
                   "plain_ms": cuda_ms(lambda: wa.window_attention_plain(qkv, p["bias"], mask,
                                                                         blk.heads), 3),
                   "library_ms": cuda_ms(lib, 20)}
             log(f"  attention qkv {tuple(qkv.shape)} heads {blk.heads}: max |kernel - plain| "
                 f"{aerr:.6g} (tolerance {ATTN_REL_TOL} x {ascale:.4g}), share > 1 bf16 step "
                 f"{bf16_steps_apart(ka, pa):.3g}; SDPA yardstick max |SDPA - plain| {lerr:.6g}; "
-                f"kernel {ta['ms']:.4f} ms, plain {ta['plain_ms']:.4f} ms, SDPA "
-                f"{ta['library_ms']:.4f} ms; bound {abound:.4f} ms by {aby}")
+                f"kernel {ta['ms']:.4f} ms ({abound / ta['ms']:.3f} of its bound), plain "
+                f"{ta['plain_ms']:.4f} ms, SDPA {ta['library_ms']:.4f} ms; bound {abound:.4f} ms "
+                f"by {aby}; host {ta['host_ms']:.4f} ms per call")
             check(aerr <= ATTN_REL_TOL * ascale,
                   f"Swin stage {i}: the window attention kernel agrees with its plain version")
             # The random table (N(0, 0.02^2)) moves ctx by about 1e-3, under
@@ -617,7 +630,7 @@ def check_swin_kernels(swin: dict, dev) -> list:
         f"{pk['products_ms']:.4f} ms, cuBLAS products alone {pk['products_library_ms']:.4f} ms, "
         f"bound {pk['products_bound_ms']:.4f} ms; attention kernel "
         f"{total(attn_stages, 'ms'):.4f} ms, SDPA {total(attn_stages, 'library_ms'):.4f} ms, "
-        f"bound {total(attn_stages, 'bound'):.4f} ms")
+        f"bound {total(attn_stages, 'bound'):.4f} ms, host {total(attn_stages, 'host_ms'):.4f} ms")
     return [
         {"name": "swin_block", "route": "cuda",
          "source": f"{PORT}/csrc/swin_gemm.cu + {PORT}/csrc/window_attention.cu",
@@ -640,6 +653,7 @@ def check_swin_kernels(swin: dict, dev) -> list:
          "ms": total(attn_stages, "ms"), "plain_ms": total(attn_stages, "plain_ms"),
          "bound_ms": total(attn_stages, "bound"), "bound_by": rows_bound_by(attn_stages),
          "library_ms": total(attn_stages, "library_ms"),
+         "attention_host_ms": total(attn_stages, "host_ms"),
          "max_abs_err_trained_bias": max(r["bias_err"] for r in attn_stages),
          "per_forward": f"{sum(cfg['depths'])} launches: sum over stages of depth x one "
                         "launch of the main path"},
@@ -747,18 +761,22 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
             tail = (P - Hp * Wp) * B_
             abound, aby = attention_bound(Bw, n, C_, p["bias"], mask, real,
                                           extra + 2 * tail * C_ * 2)
-            ta = {"ms": cuda_ms(lambda: wa.window_attention_rows(qkv, p["bias"], mask, heads,
-                                                                 rows, P), 20),
+            call = partial(wa.window_attention_rows, qkv, p["bias"], mask, heads, rows, P)
+            chained_call = partial(wa.window_attention, qkv_c, p["bias"], mask_c, heads)
+            # Row mode and the chained layout in turns (row, chained, chained,
+            # row), each the smaller of its two turns.
+            turns = [cuda_ms(fn, 20) for fn in (call, chained_call, chained_call, call)]
+            ta = {"ms": min(turns[0], turns[3]), "chained_ms": min(turns[1], turns[2]),
+                  "host_ms": host_ms(call),
                   "plain_ms": cuda_ms(lambda: wa.window_attention_rows_plain(
                       qkv, p["bias"], mask, heads, rows, P), 3),
-                  "library_ms": cuda_ms(lib, 20),
-                  "chained_ms": cuda_ms(lambda: wa.window_attention(qkv_c, p["bias"], mask_c,
-                                                                    heads), 20)}
+                  "library_ms": cuda_ms(lib, 20)}
             log(f"  row-mode attention qkv {tuple(qkv.shape)} heads {heads}, {Bw} windows: max "
                 f"|kernel - plain| {aerr:.6g} (tolerance {ATTN_REL_TOL} x {ascale:.4g}); kernel "
-                f"{ta['ms']:.4f} ms, chained-layout attention {ta['chained_ms']:.4f} ms, plain "
-                f"{ta['plain_ms']:.4f} ms, SDPA on the gathered windows (gather and scatter "
-                f"left out) {ta['library_ms']:.4f} ms; bound {abound:.4f} ms by {aby}")
+                f"{ta['ms']:.4f} ms ({abound / ta['ms']:.3f} of its bound), chained-layout "
+                f"attention {ta['chained_ms']:.4f} ms, plain {ta['plain_ms']:.4f} ms, SDPA on the "
+                f"gathered windows (gather and scatter left out) {ta['library_ms']:.4f} ms; bound "
+                f"{abound:.4f} ms by {aby}; host {ta['host_ms']:.4f} ms per call")
             check(aerr <= ATTN_REL_TOL * ascale,
                   f"fixed stage {i}: the row-mode attention agrees with its plain version")
             strong = torch.randn(p["bias"].shape, generator=bias_gen).to(dev)
@@ -822,7 +840,7 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
         f" bound {total(blocks, 'bound'):.4f} ms; stages kernel {total(stages, 'ms'):.4f} ms; "
         f"row-mode attention {total(attns, 'ms'):.4f} ms (chained layout "
         f"{total(attns, 'chained_ms'):.4f}), SDPA {total(attns, 'library_ms'):.4f} ms, bound "
-        f"{total(attns, 'bound'):.4f} ms")
+        f"{total(attns, 'bound'):.4f} ms, host {total(attns, 'host_ms'):.4f} ms")
     src = f"{PORT}/csrc/swin_gemm.cu + {PORT}/csrc/window_attention.cu (row mode)"
     return [
         {"name": "swin_block_fixed", "route": "cuda", "source": src,
@@ -835,6 +853,7 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
          "chained_ms": total(blocks, "chained_ms"),
          "attention_ms": total(attns, "ms"), "attention_bound_ms": total(attns, "bound"),
          "attention_sdpa_ms": total(attns, "library_ms"),
+         "attention_host_ms": total(attns, "host_ms"),
          "max_abs_err_attention_trained_bias": max(r["bias_err"] for r in attns),
          "per_forward": f"{sum(cfg['depths'])} blocks: sum over stages of depth x one block "
                         "of the fixed-order main path"},

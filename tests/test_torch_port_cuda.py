@@ -20,7 +20,9 @@ flips propagate: each launch is held at 2 bf16 steps (2^-7) of its largest
 output, the block at 4 steps, and under 1% of outputs more than one step
 of their own binade apart.  The attention's row mode (the fixed-order
 layout) and the fixed-order block are held the same way, on a padded map
-whose crops carry alignment rows (12x10, window 7: 196 tokens, P = 200).
+whose crops carry alignment rows (12x10, window 7: 196 tokens, P = 200);
+the attention also at every Swin-B stage in both modes, row mode bit for
+bit equal to the chained mode on the same windows.
 """
 
 import pytest
@@ -233,6 +235,56 @@ def test_window_attention_rows_matches_plain(card, shift):
     assert torch.equal(out.view(B, P, C)[:, 196:], qkv.view(B, P, 3 * C)[:, 196:, 2 * C:])
     with pytest.raises(TypeError, match="int32"):
         wa.window_attention_rows(qkv, bias, mask, heads, rows.long(), P)
+
+
+def _attention_both_modes(card, B, heads, H, W, win, shift, seed):
+    """The attention of B crops of an (H, W) map in both modes on the same
+    windows: fixed-order qkv (B·P, 3C) through the row table, and the same
+    windows gathered to (Bw, n, 3C) through the chained mode.  Each against
+    its plain version within 2 bf16 steps; row mode bit for bit equal to
+    the chained mode on every window token; alignment rows exactly their v;
+    one launch each."""
+    gen = torch.Generator().manual_seed(seed)
+    n, C, P = win * win, 32 * heads, fixed_rows(H, W, win)
+    _, rows, mask = sb.fixed_tables(H, W, win, shift, card)
+    qkv = torch.randn(B * P, 3 * C, generator=gen).to(card, torch.bfloat16)
+    bias = torch.randn(heads, n, n, generator=gen).to(card)
+    idx = (torch.arange(B, device=card)[:, None] * P + rows.long()[None, :]).reshape(-1)
+    qkv_w = qkv[idx].view(-1, n, 3 * C)
+    n0, r0 = wa.window_attention.launches, wa.window_attention_rows.launches
+    chained = wa.window_attention(qkv_w, bias, mask, heads)
+    fixed = wa.window_attention_rows(qkv, bias, mask, heads, rows, P)
+    torch.cuda.synchronize()
+    assert (wa.window_attention.launches - n0, wa.window_attention_rows.launches - r0) == (1, 1)
+    _close_bf16(chained, wa.window_attention_plain(qkv_w, bias, mask, heads), 2)
+    _close_bf16(fixed, wa.window_attention_rows_plain(qkv, bias, mask, heads, rows, P), 2)
+    assert torch.equal(fixed[idx], chained.view(-1, C))
+    nWn = rows.numel()
+    assert torch.equal(fixed.view(B, P, C)[:, nWn:], qkv.view(B, P, 3 * C)[:, nWn:, 2 * C:])
+
+
+# The Swin-B stages at 192x256 input: heads and the real map (padded to nW =
+# 70, 20, 6 and 2 windows of 7x7).  64 crops give every CTA a run of 2-9
+# crops on a 132-SM card, so the cp.async ring turns over.
+@pytest.mark.parametrize("shift", [3, 0])
+@pytest.mark.parametrize("heads,H,W", [(4, 64, 48), (8, 32, 24), (16, 16, 12), (32, 8, 6)])
+def test_window_attention_swin_b_stages(card, heads, H, W, shift):
+    _attention_both_modes(card, 64, heads, H, W, 7, shift, heads + shift)
+
+
+# n = 16, 49 and 64 (NT = 2, 7 and 8 score tiles), shifted; the window-7
+# map's crops carry alignment rows (P = 200 for 196 tokens).
+@pytest.mark.parametrize("win,H,W", [(4, 10, 9), (7, 12, 10), (8, 20, 13)])
+def test_window_attention_window_sizes(card, win, H, W):
+    _attention_both_modes(card, 48, 4, H, W, win, win // 2, win)
+
+
+@pytest.mark.parametrize("shift", [3, 0])
+def test_window_attention_ragged_run(card, shift):
+    """127 crops (a prime) at the Swin-B stage-0 geometry: whatever run the
+    launcher picks (2 .. 126 crops), the last run of each (head, window) is
+    shorter."""
+    _attention_both_modes(card, 127, 4, 64, 48, 7, shift, 127 + shift)
 
 
 @pytest.mark.parametrize("shift", [3, 0])

@@ -19,21 +19,35 @@ from multi_camera_3d_pose_estimation_tpu.ops.pallas import window_attention as j
 from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
 
 
-def _inputs(win, heads, nW, B, seed, shift):
+# The padded maps (Hp, Wp) of the Swin-B stages at 192x256 input (real maps
+# 64x48, 32x24, 16x12, 8x6), by their count of 7x7 windows: heads 4, 8, 16
+# and 32 attend over nW = 70, 20, 6 and 2 windows per crop.
+SWIN_B_MAPS = {70: (70, 49), 20: (35, 28), 6: (21, 14), 2: (14, 7)}
+
+
+def _inputs(win, heads, nW, B, seed, shift, hw=None):
+    """qkv (B·nW, n, 3C), bias, regions and mask of a padded (Hp, Wp) map
+    (``hw``; square when None) holding nW windows."""
     rng = np.random.default_rng(seed)
     n, C = win * win, 32 * heads
     qkv = rng.normal(size=(B * nW, n, 3 * C)).astype(np.float32)
     bias = rng.normal(size=(heads, n, n)).astype(np.float32)
-    side = int(np.sqrt(nW)) * win
-    regions = _shift_regions(side, side, win, win // 2) if shift else None
-    mask = _shift_mask(side, side, win, win // 2) if shift else None
+    hp, wp = hw if hw is not None else (int(np.sqrt(nW)) * win,) * 2
+    assert (hp // win) * (wp // win) == nW
+    regions = _shift_regions(hp, wp, win, win // 2) if shift else None
+    mask = _shift_mask(hp, wp, win, win // 2) if shift else None
     return qkv, bias, regions, mask
 
 
 @pytest.mark.parametrize("shift", [False, True])
-@pytest.mark.parametrize("win,heads,nW", [(7, 2, 4), (4, 3, 9)])
+@pytest.mark.parametrize("win,heads,nW", [(7, 2, 4), (4, 3, 9),
+                                          (7, 4, 70), (7, 8, 20), (7, 16, 6), (7, 32, 2)])
 def test_plain_matches_fused_window_attention(win, heads, nW, shift):
-    qkv, bias, _, mask = _inputs(win, heads, nW, 3, win + heads, shift)
+    """Square maps of 3 crops, and each Swin-B stage's geometry on its own
+    padded map (1 crop at stages 0-1, 2 at stages 2-3)."""
+    hw = SWIN_B_MAPS.get(nW) if heads >= 4 else None
+    B = 3 if hw is None else (1 if nW >= 20 else 2)
+    qkv, bias, _, mask = _inputs(win, heads, nW, B, win + heads, shift, hw)
     want = np.asarray(jwa.fused_window_attention(
         jnp.asarray(qkv), jnp.asarray(bias), None if mask is None else jnp.asarray(mask),
         heads=heads, interpret=True))
