@@ -16,7 +16,9 @@ Phases (each synchronises the card; any failure exits non-zero):
    the main path gave it (the stem output of a block's crops for the
    Bottleneck chain, the block's heatmaps for the decode), with kernel,
    plain and library times (CUDA events) and the bound from this run's
-   shapes;
+   shapes; the chain also beside the bytes bound of four launches, and
+   block 0 and an identity block each alone beside its own bound, with
+   every timed kernel's share of its bound;
 5. the whole pipeline on the card against the plain CPU path (the one the
    CPU tests hold against the JAX package) at a small HRNet size;
 6. the Swin-B main path at full width: input 192x256, 2 cameras, blocks of
@@ -973,14 +975,27 @@ def main() -> int:
         log(f"  kernel {chain['ms']:.4f} ms, plain {chain['plain_ms']:.4f} ms, cuDNN "
             f"{chain['library_ms']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
             f"({flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB)")
-        # One launch alone (fused_bottleneck_block): an identity block, 256 -> 256.
-        one = {"ms": cuda_ms(lambda: bn.fused_bottleneck_block(xs[1], blocks[1]), 20),
-               "plain_ms": cuda_ms(lambda: bn.bottleneck_block_plain(xs[1], blocks[1]), 3),
-               "library_ms": cuda_ms(lambda: chain_library(xs[1], blocks[1:2]), 20)}
-        one_bound, one_by, _, _ = chain_bound(xs[1], blocks[1:2], xs[2])
-        log(f"one block {tuple(xs[1].shape)}: kernel {one['ms']:.4f} ms, plain "
-            f"{one['plain_ms']:.4f} ms, cuDNN {one['library_ms']:.4f} ms; bound "
-            f"{one_bound:.4f} ms by {one_by}")
+        # The chain as four launches: each reads its input and writes its
+        # output once, so it cannot beat the sum of the blocks' byte bounds.
+        four_bytes = sum(chain_bound(xs[i], blocks[i:i + 1], xs[i + 1])[3]
+                         for i in range(len(blocks)))
+        four_bound = four_bytes / PEAK_BYTES_S * 1e3
+        log(f"  four-launch bytes bound {four_bound:.4f} ms ({four_bytes / 1e9:.4f} GB), fused "
+            f"single-launch bound {bound_ms:.4f} ms by {bound_by}; kernel at "
+            f"{bound_ms / chain['ms']:.3f} of the fused bound, {four_bound / chain['ms']:.3f} of "
+            f"the four-launch bound")
+        # One launch alone (fused_bottleneck_block): block 0 (cin -> 256 with
+        # the downsample) and an identity block (256 -> 256).
+        one = {}
+        for i, what in ((0, "block0"), (1, "identity")):
+            r = {"ms": cuda_ms(lambda: bn.fused_bottleneck_block(xs[i], blocks[i]), 20),
+                 "plain_ms": cuda_ms(lambda: bn.bottleneck_block_plain(xs[i], blocks[i]), 3),
+                 "library_ms": cuda_ms(lambda: chain_library(xs[i], blocks[i:i + 1]), 20)}
+            r["bound_ms"], r["bound_by"], _, _ = chain_bound(xs[i], blocks[i:i + 1], xs[i + 1])
+            log(f"one block ({what}) {tuple(xs[i].shape)}: kernel {r['ms']:.4f} ms "
+                f"({r['bound_ms'] / r['ms']:.3f} of its bound), plain {r['plain_ms']:.4f} ms, "
+                f"cuDNN {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+            one[what] = r
 
         flat = heat.reshape(-1, heat.shape[-2] * heat.shape[-1]).contiguous()
         hw = heat.shape[-1]
@@ -1033,7 +1048,11 @@ def main() -> int:
                      f"{here}/bottleneck.py:150 (fused_bottleneck_block, 1 launch)",
          "launches": launches["bottleneck"], "max_abs_err": err, "ms": chain["ms"],
          "plain_ms": chain["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": chain["library_ms"]},
+         "library_ms": chain["library_ms"], "share_of_bound": bound_ms / chain["ms"],
+         "four_launch_bound_ms": four_bound, "four_launch_bound_by": "bytes",
+         "share_of_four_launch_bound": four_bound / chain["ms"],
+         **{f"{what}_{k}": v for what, r in one.items() for k, v in r.items()},
+         **{f"{what}_share_of_bound": r["bound_ms"] / r["ms"] for what, r in one.items()}},
         {"name": "heatmap_decode", "route": "cuda", "source": f"{PORT}/csrc/fused_decode.cu",
          "replaces": f"{here}/fused_decode.py:104 (fused_heatmap_decode)",
          "launches": launches["heatmap_decode"],

@@ -6,14 +6,18 @@ Bottleneck, with inference BatchNorm folded into its convs
 
     y1  = bf16(relu(x @ W1 + b1))                 1x1 reduce  (cin -> 64)
     y2  = bf16(relu(im2col3x3(y1) @ W2 + b2))     3x3 SAME, K = 576
-    out = bf16(relu((y2 @ W3 + b3) + res))        1x1 expand  (64 -> cout)
-    res = x @ Wd + bd (block 0) or x (identity blocks)
+    out = bf16(relu((y2 @ W3 + b3) + x))          identity blocks
+    out = bf16(relu([y2 | x] @ [W3 | Wd] + (b3 + bd)))   block 0 (downsample)
 
 with bf16 operands, f32 accumulation and the Pallas kernel's bf16 cast
-points.  ``csrc/bottleneck.cu`` computes one such block per launch
-(`fused_bottleneck_block`); `fused_stage1_chain` is that kernel launched
-four times.  `bottleneck_block_plain` repeats the kernel's arithmetic in
-plain PyTorch: the wrapper runs it for a CPU tensor, and only there.
+points.  Block 0's expand and downsample are one product over K = 64 + cin
+(the kernel sums them in one accumulator), which is the Pallas kernel's
+``(y2 @ W3 + b3) + (x @ Wd + bd)`` with the f32 sums in another order.
+``csrc/bottleneck.cu`` computes one such block per launch
+(`fused_bottleneck_block`, `wgmma` products fed by TMA rings);
+`fused_stage1_chain` is that kernel launched four times.
+`bottleneck_block_plain` repeats the kernel's arithmetic in plain PyTorch:
+the wrapper runs it for a CPU tensor, and only there.
 
 Layout: activations are NHWC, (B, H, W, C) contiguous; an NCHW tensor in
 ``torch.channels_last`` is that layout without a copy (`make_fused_stage1`).
@@ -43,6 +47,8 @@ __all__ = [
 ]
 
 MID = 64  # the kernel's Bottleneck width (HRNet stage 1)
+COUT = 256  # the kernel's output width (HRNet stage 1): four 64-channel chunks
+MAX_W = 191  # rows of y1 lookahead the kernel's ring holds: (W + 64) // 64 <= 3
 
 
 def fold_convbn(convbn, eps: float = 1e-5):
@@ -99,9 +105,12 @@ def bottleneck_block_plain(x: torch.Tensor, p: dict) -> torch.Tensor:
     cat = torch.cat([pad[:, kh:kh + H, kw:kw + W] for kh in range(3) for kw in range(3)],
                     dim=-1).reshape(-1, 9 * mid)
     y2 = torch.relu(cat.float() @ p["w2"].float().t() + p["b2"]).to(dt)
-    y3 = y2.float() @ p["w3"].float().t() + p["b3"]
-    res = xf @ p["wd"].float().t() + p["bd"] if "wd" in p else xf
-    return torch.relu(y3 + res).to(dt).view(B, H, W, -1)
+    if "wd" in p:  # expand and downsample as one product, as the kernel sums them
+        w = torch.cat([p["w3"], p["wd"]], dim=1).float()
+        out = torch.cat([y2.float(), xf], dim=-1) @ w.t() + (p["b3"] + p["bd"])
+    else:
+        out = (y2.float() @ p["w3"].float().t() + p["b3"]) + xf
+    return torch.relu(out).to(dt).view(B, H, W, -1)
 
 
 _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -115,14 +124,19 @@ def _launch(x: torch.Tensor, p: dict) -> torch.Tensor:
         raise TypeError(f"the bottleneck kernel takes bf16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("the bottleneck kernel takes a contiguous NHWC tensor")
-    if mid != MID or cin % 16 or cout % 64:
-        raise ValueError(f"the bottleneck kernel needs mid == {MID}, cin % 16 == 0 and "
-                         f"cout % 64 == 0; got mid {mid}, cin {cin}, cout {cout}")
+    if mid != MID or cin % 16 or cin > COUT or cout != COUT:
+        raise ValueError(f"the bottleneck kernel needs mid == {MID}, cin % 16 == 0, "
+                         f"cin <= {COUT} and cout == {COUT}; got mid {mid}, cin {cin}, "
+                         f"cout {cout}")
+    if W > MAX_W:
+        raise ValueError(f"the bottleneck kernel takes W <= {MAX_W}, got {W}")
     if not has_down and cin != cout:
         raise ValueError(f"identity residual needs cin == cout, got {cin} vs {cout}")
     for key, t in p.items():
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"weight {key} must be contiguous on {x.device}")
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"weight {key} must be contiguous and 16-byte aligned on {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("the bottleneck kernel takes a 16-byte aligned x (its TMA loads)")
     lib = _native.library("bottleneck")
     fn = lib.mc3d_bottleneck_block
     fn.argtypes = _LAUNCH_ARGTYPES

@@ -67,6 +67,26 @@ def test_plain_chain_matches_pallas_interpret_bf16():
     np.testing.assert_array_equal(tbn.stage1_chain_plain(xt, prepared).float().numpy(), out)
 
 
+@pytest.mark.parametrize("cin", [16, 64])
+def test_plain_concatenated_downsample_matches_separate_sums_f32(cin):
+    """Block 0's expand and downsample as one product over K = 64 + cin (the
+    kernel's order) against the Pallas kernel's ``(y2 @ W3 + b3) + (x @ Wd
+    + bd)``: only the order of the f32 sums differs, within 1e-5 of the
+    largest output."""
+    (_, block), = _blocks([cin], jnp.float32, seed=cin + 1)
+    p = tbn.prepare_block(tbn.fold_bottleneck_params(block), torch.float32, "cpu")
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 9, 7, cin)).astype(np.float32))
+    new = tbn.bottleneck_block_plain(x, p)
+    xf = x.reshape(-1, cin)
+    y1 = torch.relu(xf @ p["w1"].t() + p["b1"]).view(2, 9, 7, 64)
+    pad = torch.nn.functional.pad(y1, (0, 0, 1, 1, 1, 1))
+    cat = torch.cat([pad[:, kh:kh + 9, kw:kw + 7] for kh in range(3) for kw in range(3)], -1)
+    y2 = torch.relu(cat.reshape(-1, 576) @ p["w2"].t() + p["b2"])
+    old = torch.relu((y2 @ p["w3"].t() + p["b3"]) + (xf @ p["wd"].t() + p["bd"]))
+    ref = old.view(2, 9, 7, -1)
+    assert (new - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
 def test_chain_rejects_misplaced_downsample():
     blocks = _blocks([256], jnp.float32)
     p = tbn.prepare_block(tbn.fold_bottleneck_params(blocks[0][1]), torch.float32, "cpu")

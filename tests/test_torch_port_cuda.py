@@ -57,8 +57,19 @@ def _block(gen, cin, down, device):
     return bn.prepare_block(f, torch.bfloat16, device)
 
 
+# The kernel's edges: tiles of 64 pixels in image order, one run of
+# consecutive tiles per CTA, y1 kept in a ring of (W + 64) // 64 units
+# either side.  B above the SM count at 16x8 (2 tiles per image: runs cross
+# images and start mid-image), H x W not a multiple of the tile (13x12,
+# 37x20), B = 1 at 64x48, W = 72 (HRNet-W48 at 384x288: two units of
+# lookahead), and every cin of HRNet's stage 1: 16 and 64 with the
+# downsample, 256 identity.
 @pytest.mark.parametrize("B,H,W,cin,down", [(2, 64, 48, 64, True), (2, 64, 48, 256, False),
-                                            (3, 16, 8, 16, True), (1, 13, 12, 256, False)])
+                                            (3, 16, 8, 16, True), (1, 13, 12, 256, False),
+                                            (133, 16, 8, 16, True), (263, 16, 8, 256, False),
+                                            (3, 37, 20, 256, False), (5, 13, 12, 64, True),
+                                            (1, 64, 48, 64, True), (1, 64, 48, 256, False),
+                                            (2, 96, 72, 256, False), (137, 64, 48, 256, False)])
 def test_bottleneck_kernel_matches_plain(card, B, H, W, cin, down):
     gen = torch.Generator().manual_seed(cin + H)
     p = _block(gen, cin, down, card)
@@ -71,6 +82,23 @@ def test_bottleneck_kernel_matches_plain(card, B, H, W, cin, down):
     d = (out.float() - ref).abs()
     assert d.max() <= 8e-3 * ref.abs().max()
     assert (d > ref.abs() * 2 ** -7 + 1e-6).float().mean() < 0.01
+
+
+def test_bottleneck_chain_matches_plain(card):
+    """Four launches (block 0 with the downsample, three identity blocks)
+    against `stage1_chain_plain`: 4 bf16 steps of the largest output, as
+    chip_smoke.py holds the main path's chain (a flip in one block moves the
+    next block's input, so the share of flipped outputs compounds)."""
+    gen = torch.Generator().manual_seed(11)
+    blocks = [_block(gen, 64, True, card)] + [_block(gen, 256, False, card) for _ in range(3)]
+    x = torch.rand(140, 64, 48, 64, generator=gen).to(card, torch.bfloat16)
+    n = bn.fused_bottleneck_block.launches
+    out = bn.fused_stage1_chain(x, blocks)
+    torch.cuda.synchronize()
+    assert bn.fused_bottleneck_block.launches == n + 4
+    ref = bn.stage1_chain_plain(x, blocks).float()
+    d = (out.float() - ref).abs()
+    assert d.max() <= 4 * 2 ** -8 * ref.abs().max()
 
 
 def test_bottleneck_kernel_refuses_f32(card):
