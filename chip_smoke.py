@@ -59,7 +59,22 @@ Phases (each synchronises the card; any failure exits non-zero):
    chained-layout attention timed in turns, with the host's time per call
    and the share of the bound);
 11. a small fixed-order Swin pipeline on the card against the plain CPU path;
-12. one JSON line with every kernel, the card's line, and the final
+12. the n-view + flip-TTA path at full width: HRNet-W32 at 192x256 input, 4
+   cameras, blocks of T=128 frames of 256x256 (512 crops, each through the
+   model twice), robust n-view triangulation.  A warm-up block, then the
+   counts are set to 0, a few blocks run and the counts are read (8
+   Bottleneck launches, two stage-1 passes, and 1 decode launch per
+   block); frames/s and the output checks are printed;
+13. small pipelines on the card against the plain CPU path: n-view with
+   flip-TTA on the fused decode (4 cameras), end to end and on the card's
+   own heatmaps replayed into the CPU path, and flip-TTA with the DARK
+   decode (unfused) on the card's own heatmaps;
+14. the refinement: `bench.py::bench_refinement`'s scene (400 frames x 17
+   joints x 4 cameras) in float32, 100 warm-up epochs then 2000 timed
+   (epochs/s), the device's busy share over a profiler window, float64
+   runs card against CPU (one window, then 7 overlapping windows) and the
+   `ExtrinsicRefiner` on 3 of the cameras card against CPU;
+15. one JSON line with every kernel, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
@@ -210,45 +225,237 @@ SMALL = {  # (config, input (w, h)) of the small card-vs-CPU pipelines
 }
 
 
-def check_small_pipeline(gen, family: str, label: str = "") -> None:
-    """The whole pipeline on the card against the plain CPU path (the one the
-    CPU tests hold against the JAX package), at a small size."""
+def compare_small(a: dict, b: dict, what: str) -> None:
+    """Card outputs ``a`` against CPU outputs ``b``: at least half the joints
+    with the same decoded peaks (kpts_2d within 1e-2 px in every view), at
+    least 5 of them triangulated on both, and their kpts_3d within
+    1e-2 + 1e-3·|x|."""
     import torch
-    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
 
-    cfg, input_size = SMALL[family]
-    shape = (4, 2, 96, 80, 3)
-    small = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
-    res = {}
-    for device in ("cuda", "cpu"):
-        p = build_pipeline(cfg, input_size, shape, device=device, seed=3, family=family)
-        res[device] = {k: v.float().cpu() for k, v in p.run(small).items()}
-    a, b = res["cuda"], res["cpu"]
     same = ((a["kpts_2d"][:, :, :2] - b["kpts_2d"][:, :, :2]).abs() < 1e-2).all(2).all(-1)
     both = same & torch.isfinite(a["kpts_3d"]).all(-1) & torch.isfinite(b["kpts_3d"]).all(-1)
     d3 = (a["kpts_3d"][both] - b["kpts_3d"][both]).abs()
     tol3 = 1e-2 + 1e-3 * b["kpts_3d"][both].abs()
-    log(f"small {label}{family} pipeline, card vs CPU plain: {same.float().mean().item():.3f} of joints "
+    log(f"{what}, card vs CPU plain: {same.float().mean().item():.3f} of joints "
         f"with the same peaks, {int(both.sum())} triangulated on both, max |d kpts_3d| "
         f"{d3.max().item() if d3.numel() else 0.0:.4g}")
     check(same.float().mean() >= 0.5 and both.sum() >= 5 and bool((d3 <= tol3).all()),
-          f"the {family} pipeline on the card agrees with the plain CPU path")
+          f"{what} on the card agrees with the plain CPU path")
 
 
-def check_outputs(out, pipe, T_: int) -> None:
-    """Shapes, finite Gaussians, and NaN kpts_3d exactly where a view was gated."""
+def check_small_pipeline(gen, family: str, label: str = "", cams: int = 2, **build_kw) -> None:
+    """The whole pipeline on the card against the plain CPU path (the one the
+    CPU tests hold against the JAX package), at a small size; ``build_kw``
+    are `build_pipeline` options (triangulation, flip-TTA, decode)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+
+    cfg, input_size = SMALL[family]
+    shape = (4, cams, 96, 80, 3)
+    small = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    res = {}
+    for device in ("cuda", "cpu"):
+        p = build_pipeline(cfg, input_size, shape, device=device, seed=3, family=family,
+                           **build_kw)
+        res[device] = {k: v.float().cpu() for k, v in p.run(small).items()}
+    compare_small(res["cuda"], res["cpu"], f"small {label}{family} pipeline")
+
+
+def check_outputs(out, pipe, T_: int, C_: int = C) -> None:
+    """Shapes, finite Gaussians, and NaN kpts_3d exactly where fewer than two
+    views passed the confidence gate."""
     import torch
 
     k2d, g2d, k3d = out["kpts_2d"], out["heatmaps_2d"], out["kpts_3d"]
-    check(k2d.shape == (T_, 17, 3, C) and g2d.shape == (T_, C, 17, 6)
+    check(k2d.shape == (T_, 17, 3, C_) and g2d.shape == (T_, C_, 17, 6)
           and k3d.shape == (T_, 17, 3), "output shapes")
     check(bool(torch.isfinite(g2d).all() and torch.isfinite(k2d[:, :, 2]).all()),
           "Gaussians and confidences are finite")
-    conf_ok = (k2d[:, :, 2] > pipe.conf_threshold).all(-1)  # both views pass the gate
+    conf_ok = (k2d[:, :, 2] > pipe.conf_threshold).sum(-1) >= 2  # two views pass the gate
     finite3d = torch.isfinite(k3d).all(-1)
-    check(torch.equal(finite3d, conf_ok), "kpts_3d is NaN exactly where a view was gated")
+    check(torch.equal(finite3d, conf_ok),
+          "kpts_3d is NaN exactly where fewer than two views passed the gate")
     log(f"outputs: shapes ok, Gaussians finite, {finite3d.float().mean().item():.3f} of joints "
         "triangulated (random weights; the rest gated at conf 0.3)")
+
+
+NVIEW_T, NVIEW_C = 128, 4  # the n-view + flip-TTA path: 512 crops, two passes each
+
+
+def run_nview_flip_main_path(dev, gen) -> dict:
+    """HRNet-W32 at full width through `build_pipeline(triangulation="nview",
+    flip_test=True)` on 4 cameras: a warm-up block, then N_BLOCKS counted and
+    timed blocks (two stage-1 passes per block: 8 Bottleneck launches, and
+    1 decode launch on the averaged maps)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
+
+    shape = (NVIEW_T, NVIEW_C, H, W, 3)
+    pipe = build_pipeline(HRNET_W32, INPUT, shape, device=dev, seed=0, triangulation="nview",
+                          flip_test=True)
+    blocks_u8 = [torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
+                 for _ in range(2)]
+    out = pipe.run(blocks_u8[0])  # warm-up
+    torch.cuda.synchronize()
+    counters = {"bottleneck": bn.fused_bottleneck_block, "heatmap_decode": fd.heatmap_decode_raw}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(N_BLOCKS):
+        out = pipe.run(blocks_u8[i % 2])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    fps = NVIEW_T * N_BLOCKS / dt
+    log(f"n-view + flip-TTA main path: {N_BLOCKS} blocks of {shape} in {dt:.3f} s -> "
+        f"{fps:.1f} multi-camera frames/s; launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the n-view + flip-TTA path")
+    check(launches == {"bottleneck": 8 * N_BLOCKS, "heatmap_decode": N_BLOCKS},
+          "8 Bottleneck launches (two passes) and 1 decode launch per block")
+    check_outputs(out, pipe, NVIEW_T, NVIEW_C)
+    return {"fps": fps, "launches": launches}
+
+
+def check_same_maps(gen, label: str, cams: int = 2, dev="cuda", **build_kw) -> None:
+    """The small HRNet pipeline's decode, flip-TTA, gate and triangulation on
+    the card against the CPU path on the SAME heatmaps: the card's model
+    outputs (direct and mirrored crops) replayed into the CPU pipeline."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+
+    cfg, input_size = SMALL["hrnet"]
+    shape = (4, cams, 96, 80, 3)
+    small = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    card, cpu = (build_pipeline(cfg, input_size, shape, device=d, seed=3, **build_kw)
+                 for d in (dev, "cpu"))
+    model, maps = card.estimator.model, []
+
+    def record(x, fused_stage1=None):
+        maps.append(model(x, fused_stage1=fused_stage1))
+        return maps[-1]
+
+    card.estimator.model = record
+    a = {k: v.float().cpu() for k, v in card.run(small).items()}
+    replay = iter([m.float().cpu() for m in maps])
+    cpu.estimator.model = lambda x, fused_stage1=None: next(replay)
+    b = {k: v.float().cpu() for k, v in cpu.run(small).items()}
+    check(len(maps) == (2 if build_kw.get("flip_test") else 1), "one model call per pass")
+    compare_small(a, b, f"small {label} pipeline on the card's own heatmaps")
+
+
+def refine_scene(C_: int = 4):
+    """`bench.py::bench_refinement`'s scene (BASELINE config 4): 400 frames
+    x 17 joints seen by 4 cameras, Gaussians on the exact projections
+    (variance 16), the start 3 units of noise off the truth."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    T_, J = 400, 17
+    t = np.linspace(0, 8 * np.pi, T_)[:, None, None]
+    traj = rng.uniform([-30, -30, 280], [30, 30, 360], (1, J, 3)) + 10 * np.sin(t)
+    gauss = np.zeros((T_, 4, J, 6))
+    cams = {}
+    for c in range(4):
+        K = np.array([[900.0, 0, 640], [0, 900.0, 360], [0, 0, 1]])
+        th = np.deg2rad(-30 + 20 * c)
+        R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+        Tv = np.array([40.0 * c - 60, 0.0, 10.0 * c])
+        cams[c] = [K, R, Tv, np.zeros(5)]
+        cam = traj.reshape(-1, 3) @ R.T + Tv
+        gauss[:, c, :, :2] = np.stack([K[0, 0] * cam[:, 0] / cam[:, 2] + K[0, 2],
+                                       K[1, 1] * cam[:, 1] / cam[:, 2] + K[1, 2]],
+                                      -1).reshape(T_, J, 2)
+        gauss[:, c, :, 2] = gauss[:, c, :, 5] = 16.0
+    noisy = traj + rng.normal(0, 3.0, traj.shape)
+    return gauss[:, :C_], noisy, {c: cams[c] for c in range(C_)}, traj
+
+
+REFINE_KW = dict(lr=0.01, lambda_smooth=0.01, lambda_body_length=1.0, batch_size=400,
+                 patience=10 ** 9, tolerance=0.0)
+REFINE_BODY = {"left_shoulder_left_elbow": 38.0, "left_hip_left_knee": 51.0}
+REFINE_COST_RTOL, REFINE_TRAJ_ATOL = 1e-9, 1e-7  # float64, card against CPU
+
+
+def run_refinement_phase(dev="cuda") -> dict:
+    """The refinement on the card: epochs/s in float32 (100 warm-up epochs,
+    then 2000 timed, ended by the returned numpy trajectory), the busy share
+    of one profiler window, and float64 runs card against CPU (one window,
+    then batch_size 100: 7 overlapping windows, gate on), and the
+    `ExtrinsicRefiner` on 3 of the cameras."""
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.refine import ExtrinsicRefiner, PoseRefiner
+
+    gauss, noisy, cams, truth = refine_scene()
+    ref = PoseRefiner(gauss, noisy, cams, body_lengths=REFINE_BODY, device=dev)
+    ref.sgd_optimize(max_iter=99, **REFINE_KW)  # warm-up: 100 epochs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ref.sgd_optimize(max_iter=1999, **REFINE_KW)
+    dt = time.perf_counter() - t0
+    eps = res.n_iter / dt
+    err0 = np.linalg.norm(noisy - truth, axis=-1).mean()
+    err1 = np.linalg.norm(res.trajectory - truth, axis=-1).mean()
+    log(f"refinement (400 frames x 17 joints x 4 cameras, float32): {res.n_iter} epochs in "
+        f"{dt:.3f} s -> {eps:.1f} epochs/s; mean joint error {err0:.4f} -> {err1:.4f}")
+    check(res.n_iter == 2000 and np.isfinite(res.trajectory).all() and err1 < err0,
+          "the float32 refinement ran 2000 epochs and moved toward the truth")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ref.sgd_optimize(max_iter=199, **REFINE_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    n_kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"  profiler window, 200 epochs: wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy * 1e3:.3f} ms = {busy / wall:.4f} of wall, {n_kernels / 200:.0f} kernels "
+        f"per epoch")
+
+    for B in (400, 100):
+        kw = dict(REFINE_KW, batch_size=B, max_iter=49)
+        out = {d: PoseRefiner(gauss, noisy, cams, body_lengths=REFINE_BODY, dtype=torch.float64,
+                              device=d).sgd_optimize(**kw) for d in (dev, "cpu")}
+        a, b = out[dev], out["cpu"]
+        rel = max(np.abs(a.cost_history[k] - v).max() / np.abs(v).max()
+                  for k, v in b.cost_history.items())
+        dtraj = np.abs(a.trajectory - b.trajectory).max()
+        log(f"  float64, batch_size {B} ({len(b.gate_weights)} windows, gate weights "
+            f"{b.gate_weights.tolist()}), card vs CPU over {b.n_iter} epochs: costs max rel "
+            f"{rel:.3g} (tolerance {REFINE_COST_RTOL}), trajectory max |d| {dtraj:.3g} "
+            f"(tolerance {REFINE_TRAJ_ATOL})")
+        check(a.n_iter == b.n_iter == 50 and list(a.cost_history) == list(b.cost_history),
+              "the float64 refinement ran 50 epochs on both")
+        check(all(np.allclose(a.cost_history[k], v, rtol=REFINE_COST_RTOL, atol=0)
+                  for k, v in b.cost_history.items()) and dtraj <= REFINE_TRAJ_ATOL,
+              f"the float64 refinement (batch_size {B}) on the card agrees with the CPU")
+
+    g3, _, cams3, _ = refine_scene(3)
+    th = np.deg2rad(2.0)
+    bad = {k: [p.copy() for p in v] for k, v in cams3.items()}
+    bad[2][1] = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0],
+                          [0, 0, 1]]) @ bad[2][1]
+    bad[2][2] = bad[2][2] + np.array([3.0, -2.0, 3.0])
+    ext = {}
+    for d in (dev, "cpu"):
+        er = ExtrinsicRefiner(g3, bad, N_sample_points=10, dtype=torch.float64, device=d)
+        ext[d] = (*er.optimize(learning_rate=0.01, max_iter=150, patience=30, seed=0),
+                  er.n_iter, er.best_cost)
+    (Ra, Ta, na, ca), (Rb, Tb, nb, cb) = ext[dev], ext["cpu"]
+    dR, dT = np.abs(Ra - Rb).max(), np.abs(Ta - Tb).max()
+    log(f"  ExtrinsicRefiner (3 cameras, float64, samples drawn on the CPU): {nb} steps, best "
+        f"cost {cb:.6g}; card vs CPU max |d R| {dR:.3g}, |d T| {dT:.3g}, cost rel "
+        f"{abs(ca - cb) / abs(cb):.3g}; rotation error {np.abs(Rb - cams3[2][1]).max():.4g} "
+        f"(start {np.abs(bad[2][1] - cams3[2][1]).max():.4g})")
+    check(na == nb and abs(ca - cb) <= REFINE_COST_RTOL * abs(cb) and dR <= REFINE_TRAJ_ATOL
+          and dT <= REFINE_TRAJ_ATOL, "the ExtrinsicRefiner on the card agrees with the CPU")
+    return {"epochs_per_s": eps, "busy_share": busy / wall}
 
 
 def run_swin_main_path(dev, gen) -> dict:
@@ -1040,7 +1247,23 @@ def main() -> int:
     else:
         os.environ["MC3D_SWIN_FIXED"] = before
 
-    # 12. Results.
+    # 12. The n-view + flip-TTA main path at full width (4 cameras).
+    nview = run_nview_flip_main_path(dev, gen)
+    # 13. Small n-view / flip / DARK pipelines on the card against the CPU.
+    check_small_pipeline(gen, family="hrnet", label="n-view + flip ", cams=NVIEW_C,
+                         triangulation="nview", flip_test=True)
+    check_same_maps(gen, "n-view + flip hrnet", cams=NVIEW_C, dev=dev, triangulation="nview",
+                    flip_test=True)
+    # The DARK decode's offsets follow the maps continuously, so the card's and
+    # the CPU's bf16 models (a few bf16 steps apart) decode other sub-pixel
+    # positions and no joint keeps the same peak within 1e-2 px: this
+    # configuration is held on the card's own heatmaps only.
+    check_same_maps(gen, "flip + DARK hrnet", dev=dev, flip_test=True, decode_mode="dark",
+                    use_fused_decode=False)
+    # 14. The refinement on the card.
+    refine = run_refinement_phase(dev)
+
+    # 15. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -1049,6 +1272,7 @@ def main() -> int:
          "launches": launches["bottleneck"], "max_abs_err": err, "ms": chain["ms"],
          "plain_ms": chain["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": chain["library_ms"], "share_of_bound": bound_ms / chain["ms"],
+         "flip_path_launches": nview["launches"]["bottleneck"],
          "four_launch_bound_ms": four_bound, "four_launch_bound_by": "bytes",
          "share_of_four_launch_bound": four_bound / chain["ms"],
          **{f"{what}_{k}": v for what, r in one.items() for k, v in r.items()},
@@ -1056,13 +1280,17 @@ def main() -> int:
         {"name": "heatmap_decode", "route": "cuda", "source": f"{PORT}/csrc/fused_decode.cu",
          "replaces": f"{here}/fused_decode.py:104 (fused_heatmap_decode)",
          "launches": launches["heatmap_decode"],
+         "flip_path_launches": nview["launches"]["heatmap_decode"],
          "max_abs_err": dec_err, "ms": dec["ms"],
          "plain_ms": dec["plain_ms"], "bound_ms": dec_bound, "bound_by": "bytes",
          "library_ms": None},
     ]
     kernels += swin_rows + fixed_rows_json
     print(json.dumps({"kernels": kernels, "frames_per_s": fps, "swin_frames_per_s": swin["fps"],
-                      "swin_fixed_frames_per_s": fixed["fps"]}), flush=True)
+                      "swin_fixed_frames_per_s": fixed["fps"],
+                      "nview_flip_frames_per_s": nview["fps"],
+                      "refine_epochs_per_s": refine["epochs_per_s"],
+                      "refine_busy_share": refine["busy_share"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,14 @@ takes ``device=`` and defaults to ``"cuda"``; the CPU is used only when the
 caller asks for it, and there each hand-written kernel runs as its plain
 PyTorch version.
 
-Ported so far (slices 1 and 2): the 2-camera top-down 2D + top-2 DLT 3D
-block pipeline for the HRNet and Swin heatmap families, with CUDA kernels
-for the HRNet stage-1 Bottleneck (`ops.bottleneck`, ``csrc/bottleneck.cu``),
-the single-pass heatmap decode (`ops.fused_decode`, ``csrc/fused_decode.cu``),
-and the whole SwinBlock (`ops.swin_block`: ``csrc/swin_gemm.cu`` and
-``csrc/window_attention.cu``).
+Ported so far: the top-down 2D + 3D block pipeline for the HRNet and Swin
+heatmap families (top-2 or robust n-view DLT, flip-TTA, the DARK decode),
+with CUDA kernels for the HRNet stage-1 Bottleneck (`ops.bottleneck`,
+``csrc/bottleneck.cu``), the single-pass heatmap decode (`ops.fused_decode`,
+``csrc/fused_decode.cu``) and the whole SwinBlock (`ops.swin_block`:
+``csrc/swin_gemm.cu`` and ``csrc/window_attention.cu``); and the 3-D half
+in plain PyTorch: `ops.get_pose_3d`, `refine.linear_interpolation`, and
+the Adam/MLE refiners `refine.PoseRefiner` and `refine.ExtrinsicRefiner`.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""Build the block pipeline: HRNet or Swin 2D + top-2 DLT 3D over a synthetic
-camera rig.
+"""Build the block pipeline: HRNet or Swin 2D (optionally with flip-TTA) +
+top-2 or n-view DLT 3D over a synthetic camera rig.
 
 Counterpart of the JAX repo's ``__graft_entry__._build_pipeline`` (HRNet and
 Swin families, no detector, one device).  The rig is the same: C cameras
@@ -32,11 +32,17 @@ def synthetic_rig(n_cams: int, H: int, W: int) -> dict:
 
 
 def build_pipeline(cfg, input_size, frames_shape, device="cuda", variables=None,
-                   seed: int = 0, family: str = "hrnet") -> ShardedPosePipeline:
+                   seed: int = 0, family: str = "hrnet", triangulation: str = "top2",
+                   flip_test: bool = False, flip_shift: bool = True,
+                   decode_mode: str = "default", use_fused_decode: bool = True,
+                   connectivity_type: str = "coco") -> ShardedPosePipeline:
     """The C-camera 2D+3D block pipeline on ``device``, bf16, with the
     kernels on (as on the accelerator): HRNet's stage-1 Bottleneck and the
     heatmap decode, or, for ``family="swin"``, the whole-SwinBlock kernels
-    and the heatmap decode.
+    and the heatmap decode.  ``triangulation``, ``flip_test``,
+    ``flip_shift``, ``decode_mode`` (the unfused decode's, so it needs
+    ``use_fused_decode=False``) and ``connectivity_type``: as in
+    `ShardedPosePipeline` and `TopDownEstimator`.
 
     - ``cfg``: `models.hrnet.HRNET_W32` or `models.swin.SWIN_B`-style
       config; ``input_size`` (w, h).
@@ -46,6 +52,9 @@ def build_pipeline(cfg, input_size, frames_shape, device="cuda", variables=None,
     """
     T, C, H, W, _ = frames_shape
     model = build_model(family, cfg, device, variables, seed)
-    est = TopDownEstimator(model, input_size=input_size, use_fused_decode=True,
-                           use_fused_stage1=family == "hrnet", device=device)
-    return ShardedPosePipeline(est, synthetic_rig(C, H, W), device=device)
+    est = TopDownEstimator(model, input_size=input_size, use_fused_decode=use_fused_decode,
+                           use_fused_stage1=family == "hrnet", flip_test=flip_test,
+                           flip_shift=flip_shift, decode_mode=decode_mode,
+                           connectivity_type=connectivity_type, device=device)
+    return ShardedPosePipeline(est, synthetic_rig(C, H, W), triangulation=triangulation,
+                               device=device)

@@ -1,7 +1,8 @@
 """Top-down 2D pose pipeline: bbox -> crop -> heatmap model -> decode -> image space.
 
 Counterpart of the JAX package's ``models/topdown.py`` (heatmap decode for
-the HRNet and Swin families, without flip-TTA and SimCC).  Layouts follow the JAX package:
+the HRNet and Swin families, with flip-TTA and the DARK decode; SimCC is
+not ported).  Layouts follow the JAX package:
 frames (B, H, W, 3), crops (B, in_h, in_w, 3), heatmaps (B, K, h, w),
 keypoints (B, K, 3) = (x_px, y_px, score), gaussians (B, K, 6) =
 [mean_x, mean_y, var_x, cov_xy, cov_xy, var_y] in image pixels.
@@ -21,8 +22,9 @@ import numpy as np
 import torch
 
 from ..ops.fused_decode import fused_heatmap_decode
-from ..ops.heatmap_decode import heatmap_argmax_decode
+from ..ops.heatmap_decode import heatmap_argmax_decode, heatmap_dark_decode
 from ..ops.moments import heatmap_moments
+from ..training.augment import flip_permutation
 from .swin import SwinPose
 
 __all__ = [
@@ -114,11 +116,22 @@ class TopDownEstimator:
     - ``use_fused_stage1``: run HRNet's stage 1 through the Bottleneck
       kernel (`ops.make_fused_stage1`).  A `SwinPose` picks its kernels
       itself (``use_pallas_attention``).
+    - ``flip_test``: flip-TTA: the mirrored crops through the model again,
+      their heatmaps mirrored back, left/right joints swapped (the
+      ``connectivity_type`` swap table), shifted one heatmap pixel right
+      when ``flip_shift``, and averaged with the direct ones.
+    - ``decode_mode``: "default" (argmax + ±0.25 shift) or "dark"
+      (`ops.heatmap_dark_decode`); applies to the unfused decode only, as in
+      the JAX package: with ``use_fused_decode`` the kernel decodes.
     """
 
     def __init__(self, model, input_size=(192, 256), heatmap_threshold: float = 0.01,
                  bbox_padding: float = 1.25, use_fused_decode: bool = False,
-                 use_fused_stage1: bool = False, device="cuda"):
+                 use_fused_stage1: bool = False, flip_test: bool = False,
+                 flip_shift: bool = True, decode_mode: str = "default",
+                 connectivity_type: str = "coco", device="cuda"):
+        if decode_mode not in ("default", "dark"):
+            raise ValueError(f"unknown decode_mode '{decode_mode}'")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.family = "swin" if isinstance(model, SwinPose) else "hrnet"
@@ -126,6 +139,16 @@ class TopDownEstimator:
         self.heatmap_threshold = float(heatmap_threshold)
         self.bbox_padding = float(bbox_padding)
         self.use_fused_decode = bool(use_fused_decode)
+        self.flip_shift = bool(flip_shift)
+        self.decode_mode = decode_mode
+        self.flip_perm = None  # the joint permutation when flip-TTA is on
+        if flip_test:
+            perm = flip_permutation(connectivity_type)
+            n_joints = getattr(model, "num_joints", None)
+            if n_joints is not None and n_joints != len(perm):
+                raise ValueError(f"flip_test needs the '{connectivity_type}' swap table "
+                                 f"({len(perm)} joints) to match the model ({n_joints} joints)")
+            self.flip_perm = torch.as_tensor(perm, device=self.device)
         self.fused_stage1 = None
         if use_fused_stage1:
             if self.family != "hrnet":
@@ -152,10 +175,24 @@ def _predict(est: TopDownEstimator, frames: torch.Tensor, bboxes: torch.Tensor) 
     in_w, in_h = est.input_size
     crops, scale, offset = preprocess_crops(frames, bboxes, est.input_size, est.bbox_padding)
     heat = _heatmaps(est, crops)  # (B, K, h, w) f32
+    if est.flip_perm is not None:
+        # Flip-TTA: the mirrored crops, their maps mirrored back (torch.flip:
+        # torch has no negative-step slice) with left/right joints swapped.
+        heat_f = _heatmaps(est, torch.flip(crops, dims=[2]))
+        heat_f = torch.flip(heat_f, dims=[-1])[:, est.flip_perm]
+        if est.flip_shift:
+            # The mirrored peak lands (s-1)/s heatmap px left of the truth
+            # under the x = h·stride decode; one pixel right is the best
+            # integer correction.
+            heat_f = torch.cat([heat_f[..., :1], heat_f[..., :-1]], dim=-1)
+        heat = 0.5 * (heat + heat_f)
     if est.use_fused_decode:
         moments, xy_hm, score = fused_heatmap_decode(heat, threshold=est.heatmap_threshold)
     else:
-        xy_hm, score = heatmap_argmax_decode(heat)
+        if est.decode_mode == "dark":
+            xy_hm, score = heatmap_dark_decode(heat)
+        else:
+            xy_hm, score = heatmap_argmax_decode(heat)
         moments = heatmap_moments(heat, threshold=est.heatmap_threshold)
     return _pushforward(in_h / heat.shape[-2], xy_hm, score, moments, scale, offset)
 

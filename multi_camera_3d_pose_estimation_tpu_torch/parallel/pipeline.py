@@ -1,10 +1,11 @@
-"""Multi-camera block pipeline: 2D top-down inference + top-2 DLT, one device.
+"""Multi-camera block pipeline: 2D top-down inference + DLT, one device.
 
 Counterpart of the JAX package's ``parallel/pipeline.py::ShardedPosePipeline``
 and ``_pipeline_fn`` without a detector and without a mesh: a (T, C, H, W, 3)
-frame block goes through crop, HRNet and decode as one batch of T·C crops,
-joints under the confidence threshold become NaN, and the best two views of
-each joint are triangulated.  Outputs keep the reference's wire layouts:
+frame block goes through crop, the 2D model and decode as one batch of T·C
+crops, joints under the confidence threshold become NaN, and each joint is
+triangulated from its best two views (``triangulation="top2"``) or from all
+finite views by the robust n-view solve (``"nview"``).  Outputs keep the reference's wire layouts:
 kpts_2d (T, K, 3, C), heatmaps_2d (T, C, K, 6), kpts_3d (T, K, 3).
 """
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..models.topdown import _predict
-from ..ops.triangulation import triangulate_top2
+from ..ops.triangulation import triangulate_nview, triangulate_top2
 
 __all__ = ["ShardedPosePipeline"]
 
@@ -24,12 +25,17 @@ class ShardedPosePipeline:
     - ``estimator``: a `models.TopDownEstimator`.
     - ``cam_stack``: {"K" (C,3,3), "R" (C,3,3), "T" (C,3), "dist" (C,5)}.
     - ``mesh``: must be None (multi-device runs are not ported yet).
+    - ``triangulation``: "top2" (the reference's best two views) or "nview"
+      (`ops.triangulate_nview`).
     """
 
     def __init__(self, estimator, cam_stack: dict, mesh=None, conf_threshold: float = 0.3,
-                 device="cuda"):
+                 triangulation: str = "top2", device="cuda"):
         if mesh is not None:
             raise NotImplementedError("the port runs the block pipeline on one device only")
+        if triangulation not in ("top2", "nview"):
+            raise ValueError(f"unknown triangulation '{triangulation}'")
+        self.triangulation = triangulation
         self.device = torch.device(device)
         if estimator.device != self.device:
             raise ValueError(f"estimator is on {estimator.device}, pipeline on {self.device}")
@@ -47,11 +53,12 @@ class ShardedPosePipeline:
             bboxes = torch.tensor([0.0, 0.0, float(W), float(H)],
                                   device=self.device).expand(T, C, 4)
         bboxes = torch.as_tensor(bboxes, dtype=torch.float32, device=self.device)
-        return _pipeline_fn(self.estimator, self.conf_threshold, frames, bboxes, self.cam_stack)
+        return _pipeline_fn(self.estimator, self.conf_threshold, self.triangulation, frames,
+                            bboxes, self.cam_stack)
 
 
-def _pipeline_fn(est, conf_thr: float, frames: torch.Tensor, bboxes: torch.Tensor,
-                 cam: dict) -> dict:
+def _pipeline_fn(est, conf_thr: float, triangulation: str, frames: torch.Tensor,
+                 bboxes: torch.Tensor, cam: dict) -> dict:
     T, C, H, W, _ = frames.shape
     # bf16 is the pixel path's compute dtype (cast, crop resample, normalize);
     # boxes, decode and triangulation stay f32.
@@ -69,6 +76,7 @@ def _pipeline_fn(est, conf_thr: float, frames: torch.Tensor, bboxes: torch.Tenso
                      torch.full_like(kpts[..., :2], float("nan")))
     xy_jc = xy.transpose(1, 2)  # (T, K, C, 2)
     conf_jc = conf.transpose(1, 2)  # (T, K, C)
-    kpts_3d = triangulate_top2(xy_jc, conf_jc, cam["K"], cam["dist"], cam["R"], cam["T"])
+    tri = triangulate_nview if triangulation == "nview" else triangulate_top2
+    kpts_3d = tri(xy_jc, conf_jc, cam["K"], cam["dist"], cam["R"], cam["T"])
     kpts_2d = torch.cat([xy_jc, conf_jc[..., None]], dim=-1).transpose(-1, -2)  # (T, K, 3, C)
     return {"kpts_2d": kpts_2d, "heatmaps_2d": gauss, "kpts_3d": kpts_3d}

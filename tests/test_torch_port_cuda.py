@@ -328,3 +328,89 @@ def test_fused_swin_block_fixed_matches_plain(card, shift):
     torch.cuda.synchronize()
     assert (sb.swin_gemm.launches - g0, wa.window_attention_rows.launches - a0) == (4, 1)
     _close_bf16(out, sb.swin_block_fixed_plain(x, p, **kw), 4)
+
+
+# The 3-D half: plain PyTorch on both sides, held card against CPU.  The
+# refinement in float64: per-epoch costs at 1e-9 relative, the trajectory at
+# 1e-7 (cuBLAS/cuSOLVER and the CPU sum in other orders).
+def _refine_scene(T=24, J=5, n_cams=3, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 2 * np.pi, T)[:, None]
+    traj = rng.uniform([-30, -30, 280], [30, 30, 360], (1, J, 3)) + 10.0 * np.stack(
+        [np.sin(t), np.cos(t), 0.5 * np.sin(2 * t)], axis=-1)
+    cams, gauss = {}, np.zeros((T, n_cams, J, 6))
+    for c in range(n_cams):
+        K = np.array([[900.0 + 10 * c, 0, 640.0], [0, 905.0 - 5 * c, 360.0], [0, 0, 1]])
+        th = np.deg2rad(-20.0 + 25.0 * c)
+        R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+        Tv = np.array([40.0 * c - 20.0, 2.0 * c, 25.0 * c])
+        cams[c] = [K, R, Tv, np.array([-0.05 * c, 0.01, 0, 0, 0])]
+        cam = traj.reshape(-1, 3) @ R.T + Tv
+        gauss[:, c, :, :2] = (cam[:, :2] / cam[:, 2:] * [K[0, 0], K[1, 1]]
+                              + [K[0, 2], K[1, 2]]).reshape(T, J, 2)
+        gauss[:, c, :, 2] = gauss[:, c, :, 5] = 16.0
+    return gauss, traj + rng.normal(0, 3.0, traj.shape), cams
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(batch_size=8), dict(use_NN=True, lr=0.01)],
+                         ids=["one_window", "overlapping_windows", "use_nn"])
+def test_refinement_float64_matches_cpu(card, kw):
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch.refine import PoseRefiner
+
+    gauss, init, cams = _refine_scene()
+    args = dict(dict(lr=0.05, max_iter=39, patience=10 ** 6, lambda_smooth=0.01), **kw)
+    body = {"nose_left_eye": 4.0, "left_eye_left_ear": 6.0}
+    res = {d: PoseRefiner(gauss, init, cams, body_lengths=body, dtype=torch.float64,
+                          device=d).sgd_optimize(**args) for d in (card, "cpu")}
+    a, b = res[card], res["cpu"]
+    assert a.n_iter == b.n_iter == 40
+    for k, v in b.cost_history.items():
+        np.testing.assert_allclose(a.cost_history[k], v, rtol=1e-9, atol=0, err_msg=k)
+    np.testing.assert_allclose(a.trajectory, b.trajectory, rtol=0, atol=1e-7)
+
+
+def test_triangulate_nview_matches_cpu(card):
+    """At the n-view path's shape: 128 frames x 17 joints x 4 views, f32,
+    some views gated (NaN); held at 1e-3 relative (f32 4x4 solves)."""
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import synthetic_rig
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import triangulate_nview
+
+    gen = torch.Generator().manual_seed(9)
+    rig = {k: torch.as_tensor(v) for k, v in synthetic_rig(4, 256, 256).items()}
+    X = torch.rand(128, 17, 3, generator=gen) * 60 - 30 + torch.tensor([0.0, 0.0, 400.0])
+    cam = torch.einsum("cij,tkj->tkci", rig["R"], X) + rig["T"]
+    kpts = cam[..., :2] / cam[..., 2:] * 600.0 + 128.0 + torch.randn(128, 17, 4, 2, generator=gen)
+    conf = torch.rand(128, 17, 4, generator=gen)
+    kpts[conf < 0.3] = float("nan")
+    args = (kpts, conf, rig["K"], rig["dist"], rig["R"], rig["T"])
+    out = triangulate_nview(*(a.to(card) for a in args)).cpu()
+    ref = triangulate_nview(*args)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref)) and torch.isnan(ref).any()
+    ok = torch.isfinite(ref)
+    torch.testing.assert_close(out[ok], ref[ok], rtol=1e-3, atol=1e-2)
+
+
+def test_dark_decode_matches_cpu(card):
+    """Heatmaps of the HRNet path's size: the card's f32 decode no further
+    from the float64 decode than twice the CPU's f32 decode is, plus 1e-5
+    px (the f32 offsets come from logs of blurred sums: up to 6e-4 px off
+    float64 on the CPU where a peak sits at the map's edge), the score
+    exactly."""
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import heatmap_dark_decode
+
+    gen = torch.Generator().manual_seed(10)
+    ys, xs = torch.meshgrid(torch.arange(64.0), torch.arange(48.0), indexing="ij")
+    c = torch.rand(512, 17, 2, 1, 1, generator=gen) * torch.tensor([64.0, 48.0])[:, None, None]
+    hm = torch.exp(-((ys - c[:, :, 0]) ** 2 + (xs - c[:, :, 1]) ** 2) / 4.5)
+    hm = hm + 0.01 * torch.rand(hm.shape, generator=gen)
+    xy, s = heatmap_dark_decode(hm.to(card))
+    xy_ref, s_ref = heatmap_dark_decode(hm)
+    xy64 = heatmap_dark_decode(hm.double())[0]
+    err = (xy.cpu().double() - xy64).abs().max().item()
+    err_ref = (xy_ref.double() - xy64).abs().max().item()
+    assert err <= 2 * err_ref + 1e-5, (err, err_ref)
+    assert torch.equal(s.cpu(), s_ref)
