@@ -74,7 +74,27 @@ Phases (each synchronises the card; any failure exits non-zero):
    (epochs/s), the device's busy share over a profiler window, float64
    runs card against CPU (one window, then 7 overlapping windows) and the
    `ExtrinsicRefiner` on 3 of the cameras card against CPU;
-15. one JSON line with every kernel, the card's line, and the final
+15. the detector path at full width: HRNet-W32 at 192x256 behind RTMDet-m
+   (``rtmdet_m``, top-1 selection) on the headline block (T=256 x C=2 of
+   256x256, 512 crops), random weights from a seed.  A warm-up block, then
+   the counts are set to 0, a few blocks run and the counts are read (4
+   Bottleneck and 1 decode launch per block); frames/s, the full-frame
+   frames/s of the same pipeline (boxes given) and the detector's cost
+   ``1 - det/full``, the share of frames whose box was kept (each kept box
+   finite, inside the frame, of positive size) and the output checks;
+16. one timed block each behind ``centernet_w32`` (top-1) and ``yolox_s``
+   (consistent selection: top-4 candidates, a 9-frame window): launch
+   counts, frames/s, kept boxes and the output checks;
+17. the SimCC path at full width: RTMPose-t (``coco_rtmpose-t``) at 192x256
+   on T=256 x C=2, a few timed blocks: 0 Bottleneck and 0 decode launches,
+   frames/s, the share of joints passing the 0.3 gate, the output checks;
+18. small pipelines on the card against the plain CPU path: the detector
+   path with top-1 and with consistent selection, the CPU path also on the
+   card's own detector outputs replayed (boxes and scores equal), and end
+   to end with the detector in float32 where both sides kept the same box;
+   RTMPose with flip-TTA on the card's own SimCC logits replayed;
+19. one JSON line with every kernel (with its launches on phases 15-17), the
+   script's wall time, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
@@ -222,6 +242,7 @@ SMALL = {  # (config, input (w, h)) of the small card-vs-CPU pipelines
     "hrnet": ({"widths": (8, 16, 32, 64), "modules": (1, 1, 1, 1), "stem": 16}, (32, 64)),
     "swin": ({"embed": 64, "depths": (2, 2), "heads": (2, 4), "window": 7, "mlp_ratio": 4,
               "deconv": (32,)}, (64, 96)),
+    "rtmpose": ({"widen": 0.125, "deepen": 0.167, "embed": 32}, (64, 96)),
 }
 
 
@@ -1076,8 +1097,243 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
     ]
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by counter name."""
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
+
+    return {"bottleneck": bn.fused_bottleneck_block, "heatmap_decode": fd.heatmap_decode_raw,
+            "swin_gemm": sb.swin_gemm, "window_attention": wa.window_attention,
+            "window_attention_rows": wa.window_attention_rows}
+
+
+# The counters whose launches make up each row of the results line.
+ROW_COUNTERS = {"stage1_bottleneck_chain": ("bottleneck",), "heatmap_decode": ("heatmap_decode",),
+                "swin_block": ("swin_gemm", "window_attention"),
+                "window_attention": ("window_attention",),
+                "swin_block_fixed": ("swin_gemm", "window_attention_rows"),
+                "swin_stage_fixed": ("swin_gemm", "window_attention_rows")}
+
+
+def timed_blocks(pipe, blocks, n: int, bboxes=None):
+    """``n`` blocks through ``pipe.run`` with every count set to 0 just
+    before: (the last output, seconds, every counter's launches)."""
+    import torch
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(n):
+        out = pipe.run(blocks[i % len(blocks)], bboxes)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, dt, {k: fn.launches for k, fn in counters.items()}
+
+
+def check_kept_boxes(pipe, block, what: str) -> float:
+    """The boxes ``pipe.run(block)`` crops to: every kept one finite, inside
+    the frame and of positive size, and at least one kept.  Returns the
+    share of (frame, camera) pairs whose detection was kept."""
+    import torch
+
+    boxes, score, kept = pipe.detect(block)
+    Hh, Ww = block.shape[2:4]
+    b = boxes[kept]
+    wh = b[:, 2:] - b[:, :2]
+    ok = (torch.isfinite(b).all(-1) & (b[:, :2] >= 0).all(-1) & (b[:, 2] <= Ww)
+          & (b[:, 3] <= Hh) & (wh > 0).all(-1))
+    share = kept.float().mean().item()
+    check(bool(kept.any()), f"{what}: the detector's box was kept somewhere")
+    q = torch.quantile(wh.float().flatten(), torch.tensor([0.0, 0.5, 1.0], device=wh.device))
+    log(f"  {what}: {share:.4f} of frames x cameras kept the detector's box (score > "
+        f"{pipe.detector.bbox_thr}; selected scores {score.min().item():.4f}-"
+        f"{score.max().item():.4f}); kept box sides min/median/max "
+        f"{[round(v, 2) for v in q.tolist()]} px; all finite, inside the frame, positive: "
+        f"{bool(ok.all())}")
+    check(bool(ok.all()), f"{what}: kept boxes are finite, inside the frame and of positive size")
+    return share
+
+
+def run_detector_path(dev, gen, det_name: str, select: str, n_blocks: int,
+                      full_frame: bool = False) -> dict:
+    """HRNet-W32 behind ``det_name`` through `build_pipeline(detector=...)`
+    on the headline block: a warm-up block, then ``n_blocks`` counted and
+    timed blocks (4 Bottleneck and 1 decode launch per block); with
+    ``full_frame``, the same pipeline again on given full-frame boxes."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
+
+    what = f"HRNet-W32 behind {det_name} ({select})"
+    shape = (T, C, H, W, 3)
+    t0 = time.perf_counter()
+    pipe = build_pipeline(HRNET_W32, INPUT, shape, device=dev, seed=0, detector=det_name,
+                          detector_select=select)
+    blocks = [torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    log(f"{what}: built in {time.perf_counter() - t0:.1f} s")
+    pipe.run(blocks[0])  # warm-up
+    torch.cuda.synchronize()
+    out, dt, launches = timed_blocks(pipe, blocks, n_blocks)
+    fps = T * n_blocks / dt
+    log(f"{what}: {n_blocks} blocks of {shape} in {dt:.3f} s -> {fps:.1f} multi-camera "
+        f"frames/s; launches {launches}")
+    check(launches == dict(bottleneck=4 * n_blocks, heatmap_decode=n_blocks, swin_gemm=0,
+                           window_attention=0, window_attention_rows=0),
+          f"{what}: 4 Bottleneck launches and 1 decode launch per block, no other kernel")
+    check_outputs(out, pipe, T)
+    res = {"fps": fps, "launches": launches,
+           "kept_share": check_kept_boxes(pipe, blocks[(n_blocks - 1) % 2], what)}
+    if full_frame:
+        full = torch.tensor([0.0, 0.0, W, H], device=dev).expand(T, C, 4)
+        _, dt_ff, _ = timed_blocks(pipe, blocks, n_blocks, full)
+        res["full_frame_fps"] = T * n_blocks / dt_ff
+        res["detector_cost"] = 1.0 - fps / res["full_frame_fps"]
+        log(f"  the same pipeline on given full-frame boxes: {res['full_frame_fps']:.1f} "
+            f"frames/s; the detector's cost 1 - det/full = {res['detector_cost']:.4f}")
+    return res
+
+
+def run_simcc_path(dev, gen) -> dict:
+    """RTMPose-t through `build_pipeline(family="rtmpose")` on T=256 x C=2:
+    a warm-up block, then N_BLOCKS counted and timed blocks (no kernel)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.models.registry import MODEL_REGISTRY
+
+    spec = MODEL_REGISTRY["coco_rtmpose-t"]
+    shape = (T, C, H, W, 3)
+    t0 = time.perf_counter()
+    pipe = build_pipeline(spec["cfg"], spec["input_size"], shape, device=dev, seed=0,
+                          family="rtmpose")
+    blocks = [torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    log(f"RTMPose-t pipeline built in {time.perf_counter() - t0:.1f} s")
+    pipe.run(blocks[0])  # warm-up
+    torch.cuda.synchronize()
+    out, dt, launches = timed_blocks(pipe, blocks, N_BLOCKS)
+    fps = T * N_BLOCKS / dt
+    share = (out["kpts_2d"][:, :, 2] > pipe.conf_threshold).float().mean().item()
+    log(f"SimCC path (RTMPose-t): {N_BLOCKS} blocks of {shape} in {dt:.3f} s -> {fps:.1f} "
+        f"multi-camera frames/s; launches {launches}; {share:.4f} of joints pass the "
+        f"{pipe.conf_threshold} gate")
+    check(all(n == 0 for n in launches.values()),
+          "the SimCC path launches no kernel (0 Bottleneck, 0 decode)")
+    check_outputs(out, pipe, T)
+    return {"fps": fps, "launches": launches, "joint_share": share}
+
+
+DET_SMALL_SHAPE = (4, 2, 64, 96, 3)  # RTMDet needs H, W multiples of 32
+
+
+def check_small_detector_pipeline(gen, dev, select: str) -> None:
+    """The small HRNet pipeline behind ``test_rtmdet_micro`` on the card
+    against the CPU path: (1) the CPU path on the card's own (bf16)
+    detector outputs replayed: the same boxes and scores, and the outputs
+    as phase 5 holds them; (2) end to end with the detector in float32 on
+    both sides (TF32 off: the same candidate then gives the same box within
+    1e-2 px), compared on the frames where both sides kept the same box."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.models import RTMDet, SinglePersonDetector
+    from multi_camera_3d_pose_estimation_tpu_torch.models.registry import (DETECTOR_REGISTRY,
+                                                                           init_rtmdet_)
+
+    cfg, input_size = SMALL["hrnet"]
+    small = torch.randint(0, 256, DET_SMALL_SHAPE, generator=gen, dtype=torch.uint8)
+    card, cpu = (build_pipeline(cfg, input_size, DET_SMALL_SHAPE, device=d, seed=3,
+                                detector="test_rtmdet_micro", detector_select=select)
+                 for d in (dev, "cpu"))
+    model, recorded = card.detector.model, []
+
+    def record(x):
+        recorded.append(model(x))
+        return recorded[-1]
+
+    card.detector.model = record
+    a_det = [t.cpu() for t in card.detect(small)]
+    a = {k: v.float().cpu() for k, v in card.run(small).items()}
+    replay = iter([{k: v.cpu() for k, v in o.items() if k != "raw"} for o in recorded])
+    cpu.detector.model = lambda x: next(replay)
+    b_det = list(cpu.detect(small))
+    b = {k: v.float().cpu() for k, v in cpu.run(small).items()}
+    same = all(torch.equal(x, y) for x, y in zip(a_det, b_det))
+    log(f"small {select} detector pipeline, the CPU path on the card's detector outputs: boxes, "
+        f"scores and kept flags equal {same} ({a_det[2].float().mean().item():.3f} kept)")
+    check(len(recorded) == 2 and same,
+          f"{select} selection on the card's detector outputs gives the card's boxes on the CPU")
+    compare_small(a, b, f"small {select} detector pipeline on the card's own detections")
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    for d in (dev, "cpu"):
+        det_model = RTMDet(**DETECTOR_REGISTRY["test_rtmdet_micro"]["cfg"], dtype=torch.float32,
+                           device=d)
+        det = SinglePersonDetector(init_rtmdet_(det_model, torch.Generator().manual_seed(3)),
+                                   select=select, device=d)
+        p = build_pipeline(cfg, input_size, DET_SMALL_SHAPE, device=d, seed=3, detector=det)
+        res[d] = ({k: v.float().cpu() for k, v in p.run(small).items()}, p.detect(small)[0].cpu())
+    torch.backends.cudnn.allow_tf32 = prev
+    (a, ba), (b, bb) = res[dev], res["cpu"]
+    frames_ok = ((ba - bb).abs() < 1e-2).all(-1).all(-1)  # (T,): both views kept the same box
+    log(f"small {select} detector pipeline end to end (float32 detector): "
+        f"{int(frames_ok.sum())} of {len(frames_ok)} frames with the same boxes in every view, "
+        f"max |d box| {(ba - bb).abs().max().item():.3g} px")
+    check(frames_ok.float().mean() >= 0.5, f"{select}: most frames crop to the same boxes")
+    compare_small({k: v[frames_ok] for k, v in a.items()},
+                  {k: v[frames_ok] for k, v in b.items()},
+                  f"small {select} detector pipeline end to end, same-box frames")
+
+
+def check_simcc_replay(gen, dev) -> None:
+    """The small RTMPose + flip-TTA pipeline's decode, gate and triangulation
+    on the card against the CPU path on the card's own SimCC logits (direct
+    and mirrored passes) replayed."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+
+    cfg, input_size = SMALL["rtmpose"]
+    shape = (4, 2, 96, 80, 3)
+    small = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    card, cpu = (build_pipeline(cfg, input_size, shape, device=d, seed=3, family="rtmpose",
+                                flip_test=True) for d in (dev, "cpu"))
+    model, logits = card.estimator.model, []
+
+    def record(x):
+        logits.append(model(x))
+        return logits[-1]
+
+    card.estimator.model = record
+    a = {k: v.float().cpu() for k, v in card.run(small).items()}
+    replay = iter([tuple(t.cpu() for t in pair) for pair in logits])
+    cpu.estimator.model = lambda x: next(replay)
+    b = {k: v.float().cpu() for k, v in cpu.run(small).items()}
+    check(len(logits) == 2, "two RTMPose passes (direct and mirrored)")
+    # The same logits: the decode must agree on (nearly) every joint, the
+    # gated ones (NaN on both sides) included.
+    xa, xb = a["kpts_2d"][:, :, :2], b["kpts_2d"][:, :, :2]
+    agree = (((xa - xb).abs() < 1e-2) | (torch.isnan(xa) & torch.isnan(xb))).all(2).float()
+    both = torch.isfinite(a["kpts_3d"]).all(-1) & torch.isfinite(b["kpts_3d"]).all(-1)
+    d3 = (a["kpts_3d"][both] - b["kpts_3d"][both]).abs()
+    log(f"small RTMPose + flip pipeline on the card's own SimCC logits, card vs CPU plain: "
+        f"{agree.mean().item():.3f} of joints decoded alike (gated alike included), "
+        f"{int(both.sum())} triangulated on both, max |d kpts_3d| "
+        f"{d3.max().item() if d3.numel() else 0.0:.4g}")
+    check(agree.mean() >= 0.95 and both.sum() >= 5
+          and bool((d3 <= 1e-2 + 1e-3 * b["kpts_3d"][both].abs()).all()),
+          "the SimCC decode of the card's logits agrees on the card and the CPU")
+
+
 def main() -> int:
     import torch
+
+    wall0 = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1263,7 +1519,20 @@ def main() -> int:
     # 14. The refinement on the card.
     refine = run_refinement_phase(dev)
 
-    # 15. Results.
+    # 15. The detector path at full width: HRNet-W32 behind RTMDet-m.
+    paths = {"rtmdet_m": run_detector_path(dev, gen, "rtmdet_m", "top1", N_BLOCKS,
+                                           full_frame=True)}
+    # 16. CenterNet (top-1) and YOLOX-s (consistent selection), one block each.
+    paths["centernet_w32"] = run_detector_path(dev, gen, "centernet_w32", "top1", 1)
+    paths["yolox_s_consistent"] = run_detector_path(dev, gen, "yolox_s", "consistent", 1)
+    # 17. The SimCC path at full width.
+    paths["rtmpose_t"] = run_simcc_path(dev, gen)
+    # 18. Small detector and SimCC pipelines on the card against the CPU.
+    for select in ("top1", "consistent"):
+        check_small_detector_pipeline(gen, dev, select)
+    check_simcc_replay(gen, dev)
+
+    # 19. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -1286,11 +1555,27 @@ def main() -> int:
          "library_ms": None},
     ]
     kernels += swin_rows + fixed_rows_json
+    for row in kernels:
+        row["launches_phases_15_17"] = {
+            path: sum(r["launches"][c] for c in ROW_COUNTERS[row["name"]])
+            for path, r in paths.items()}
+    wall = time.perf_counter() - wall0
+    log(f"chip_smoke wall time {wall:.1f} s")
+    det = paths["rtmdet_m"]
     print(json.dumps({"kernels": kernels, "frames_per_s": fps, "swin_frames_per_s": swin["fps"],
                       "swin_fixed_frames_per_s": fixed["fps"],
                       "nview_flip_frames_per_s": nview["fps"],
                       "refine_epochs_per_s": refine["epochs_per_s"],
-                      "refine_busy_share": refine["busy_share"]}), flush=True)
+                      "refine_busy_share": refine["busy_share"],
+                      "rtmdet_frames_per_s": det["fps"],
+                      "rtmdet_full_frame_frames_per_s": det["full_frame_fps"],
+                      "rtmdet_detector_cost": det["detector_cost"],
+                      "rtmdet_kept_share": det["kept_share"],
+                      "centernet_frames_per_s": paths["centernet_w32"]["fps"],
+                      "yolox_consistent_frames_per_s": paths["yolox_s_consistent"]["fps"],
+                      "simcc_frames_per_s": paths["rtmpose_t"]["fps"],
+                      "simcc_joint_share": paths["rtmpose_t"]["joint_share"],
+                      "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

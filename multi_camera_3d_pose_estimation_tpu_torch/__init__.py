@@ -8,7 +8,9 @@ caller asks for it, and there each hand-written kernel runs as its plain
 PyTorch version.
 
 Ported so far: the top-down 2D + 3D block pipeline for the HRNet and Swin
-heatmap families (top-2 or robust n-view DLT, flip-TTA, the DARK decode),
+heatmap families (top-2 or robust n-view DLT, flip-TTA, the DARK decode)
+and the RTMPose SimCC family, behind the person detectors (CenterNet,
+RTMDet, YOLOX; top-1 or consistent selection) in plain PyTorch,
 with CUDA kernels for the HRNet stage-1 Bottleneck (`ops.bottleneck`,
 ``csrc/bottleneck.cu``), the single-pass heatmap decode (`ops.fused_decode`,
 ``csrc/fused_decode.cu``) and the whole SwinBlock (`ops.swin_block`:

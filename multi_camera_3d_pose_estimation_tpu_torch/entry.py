@@ -1,8 +1,8 @@
-"""Build the block pipeline: HRNet or Swin 2D (optionally with flip-TTA) +
-top-2 or n-view DLT 3D over a synthetic camera rig.
+"""Build the block pipeline: a person detector (optional), HRNet, Swin or
+RTMPose 2D (optionally with flip-TTA) + top-2 or n-view DLT 3D over a
+synthetic camera rig.
 
-Counterpart of the JAX repo's ``__graft_entry__._build_pipeline`` (HRNet and
-Swin families, no detector, one device).  The rig is the same: C cameras
+Counterpart of the JAX repo's ``__graft_entry__._build_pipeline`` (one device).  The rig is the same: C cameras
 with f = 600 px at the frame centre, yawed from -20 to +20 degrees,
 translated (40·c − 20, 0, 10·c), no distortion.
 """
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .models.registry import build_model
+from .models.detector import SinglePersonDetector
+from .models.registry import build_detector, build_model
 from .models.topdown import TopDownEstimator
 from .parallel.pipeline import ShardedPosePipeline
 
@@ -35,26 +36,39 @@ def build_pipeline(cfg, input_size, frames_shape, device="cuda", variables=None,
                    seed: int = 0, family: str = "hrnet", triangulation: str = "top2",
                    flip_test: bool = False, flip_shift: bool = True,
                    decode_mode: str = "default", use_fused_decode: bool = True,
-                   connectivity_type: str = "coco") -> ShardedPosePipeline:
+                   connectivity_type: str = "coco", detector=None,
+                   detector_select: str = "top1") -> ShardedPosePipeline:
     """The C-camera 2D+3D block pipeline on ``device``, bf16, with the
     kernels on (as on the accelerator): HRNet's stage-1 Bottleneck and the
     heatmap decode, or, for ``family="swin"``, the whole-SwinBlock kernels
-    and the heatmap decode.  ``triangulation``, ``flip_test``,
+    and the heatmap decode; ``family="rtmpose"`` (SimCC decode) reaches no
+    kernel.  ``triangulation``, ``flip_test``,
     ``flip_shift``, ``decode_mode`` (the unfused decode's, so it needs
     ``use_fused_decode=False``) and ``connectivity_type``: as in
     `ShardedPosePipeline` and `TopDownEstimator`.
 
-    - ``cfg``: `models.hrnet.HRNET_W32` or `models.swin.SWIN_B`-style
-      config; ``input_size`` (w, h).
+    - ``cfg``: `models.hrnet.HRNET_W32`, `models.swin.SWIN_B` or
+      `models.rtmpose.RTMPOSE_T`-style config; ``input_size`` (w, h).
     - ``frames_shape``: (T, C, H, W, 3) of the blocks it will run.
     - ``variables``: a flax ``{"params", "batch_stats"}`` tree of numpy
       arrays; None draws random weights from ``torch.Generator`` seed ``seed``.
+    - ``detector``: a `models.registry.DETECTOR_REGISTRY` name (random
+      weights from seed ``seed``, selection ``detector_select``: "top1" or
+      "consistent") or a ready `models.SinglePersonDetector`; None runs on
+      the full frame.
     """
     T, C, H, W, _ = frames_shape
-    model = build_model(family, cfg, device, variables, seed)
-    est = TopDownEstimator(model, input_size=input_size, use_fused_decode=use_fused_decode,
+    model = build_model(family, cfg, device, variables, seed, input_size)
+    est = TopDownEstimator(model, input_size=input_size,
+                           decode="simcc" if family == "rtmpose" else "heatmap",
+                           use_fused_decode=use_fused_decode,
                            use_fused_stage1=family == "hrnet", flip_test=flip_test,
                            flip_shift=flip_shift, decode_mode=decode_mode,
                            connectivity_type=connectivity_type, device=device)
-    return ShardedPosePipeline(est, synthetic_rig(C, H, W), triangulation=triangulation,
-                               device=device)
+    if isinstance(detector, str):
+        detector = build_detector(detector, device=device, seed=seed, select=detector_select)
+    elif detector is not None and not isinstance(detector, SinglePersonDetector):
+        raise TypeError(f"detector must be a registry name or a SinglePersonDetector, "
+                        f"not {type(detector).__name__}")
+    return ShardedPosePipeline(est, synthetic_rig(C, H, W), detector=detector,
+                               triangulation=triangulation, device=device)

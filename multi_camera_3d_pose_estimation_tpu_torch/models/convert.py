@@ -1,14 +1,16 @@
-"""Carry HRNet and Swin weights from a flax variables tree to the port's
-``state_dict``.
+"""Carry weights from a flax variables tree to the port's ``state_dict``:
+HRNet, Swin, RTMPose and the detectors (CenterNet, RTMDet, YOLOX).
 
 The port's submodules carry the flax names, so the map is mechanical:
 
 - conv ``<path>/kernel`` (kh, kw, cin, cout) -> ``<path>.weight``
   (cout, cin, kh, kw); Swin's ``deconv_*/kernel`` -> (cin, cout, kh, kw), the
-  ``conv_transpose2d`` layout; a Dense ``kernel`` (in, out) -> ``weight``
-  (out, in) (Swin only: HRNet has no Dense layer);
+  ``conv_transpose2d`` layout; a depthwise kernel (kh, kw, 1, C) -> (C, 1,
+  kh, kw) by the same transpose; a Dense ``kernel`` (in, out) -> ``weight``
+  (out, in) (Swin and RTMPose: HRNet and the detectors have no Dense layer);
 - ``<path>/bias`` -> ``<path>.bias``; BatchNorm and LayerNorm ``scale`` ->
-  ``weight``; Swin's ``bias_table`` stays ``bias_table``;
+  ``weight``; Swin's ``bias_table`` stays ``bias_table``; RTMPose's
+  ScaleNorm ``g`` and GAU ``gamma``, ``beta``, ``res_scale`` keep their names;
 - batch stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``, plus
   ``num_batches_tracked`` = 0 for every BatchNorm.
 
@@ -22,7 +24,10 @@ import numpy as np
 import torch
 
 __all__ = ["hrnet_state_dict_from_flax", "load_hrnet_from_flax", "swin_state_dict_from_flax",
-           "load_swin_from_flax"]
+           "load_swin_from_flax", "rtmpose_state_dict_from_flax", "load_rtmpose_from_flax",
+           "centernet_state_dict_from_flax", "load_centernet_from_flax",
+           "rtmdet_state_dict_from_flax", "load_rtmdet_from_flax", "yolox_state_dict_from_flax",
+           "load_yolox_from_flax"]
 
 _PARAM_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
@@ -58,13 +63,13 @@ def _state_dict_from_flax(variables: dict, kernel, param_names) -> dict[str, tor
     return sd
 
 
-def _hrnet_kernel(path, arr):
+def _conv_kernel(path, arr):
     if arr.ndim != 4:
         raise ValueError(f"{'/'.join(path)}: expected a 4-d conv kernel, got {arr.shape}")
     return arr.transpose(3, 2, 0, 1)
 
 
-def _swin_kernel(path, arr):
+def _dense_or_conv_kernel(path, arr):
     if arr.ndim == 2:
         return arr.T
     if arr.ndim != 4:
@@ -76,14 +81,38 @@ def _swin_kernel(path, arr):
 
 def hrnet_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` tree of numpy arrays -> the port's state_dict."""
-    return _state_dict_from_flax(variables, _hrnet_kernel, _PARAM_NAMES)
+    return _state_dict_from_flax(variables, _conv_kernel, _PARAM_NAMES)
 
 
 def swin_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """A flax `SwinPose` ``{"params", "batch_stats"}`` tree of numpy arrays ->
     the port's `models.swin.SwinPose` state_dict."""
-    return _state_dict_from_flax(variables, _swin_kernel,
+    return _state_dict_from_flax(variables, _dense_or_conv_kernel,
                                  dict(_PARAM_NAMES, bias_table="bias_table"))
+
+
+def rtmpose_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """A flax `RTMPose` tree of numpy arrays -> the port's `models.rtmpose.RTMPose`
+    state_dict."""
+    return _state_dict_from_flax(variables, _dense_or_conv_kernel,
+                                 dict(_PARAM_NAMES, g="g", gamma="gamma", beta="beta",
+                                      res_scale="res_scale"))
+
+
+def centernet_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """A flax `CenterNetDetector` tree -> the port's `models.detector.CenterNetDetector`."""
+    return _state_dict_from_flax(variables, _conv_kernel, _PARAM_NAMES)
+
+
+def rtmdet_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """A flax `RTMDet` tree -> the port's `models.rtmdet.RTMDet` (the head's
+    shared ``cls_conv_i`` / ``reg_conv_i`` are one leaf each on both sides)."""
+    return _state_dict_from_flax(variables, _conv_kernel, _PARAM_NAMES)
+
+
+def yolox_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """A flax `YOLOX` tree -> the port's `models.yolox.YOLOX`."""
+    return _state_dict_from_flax(variables, _conv_kernel, _PARAM_NAMES)
 
 
 def _load_strict(model: torch.nn.Module, sd: dict) -> torch.nn.Module:
@@ -109,3 +138,23 @@ def load_hrnet_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Mo
 def load_swin_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
     """Load a flax SwinPose variables tree into the port's `SwinPose`, strictly."""
     return _load_strict(model, swin_state_dict_from_flax(variables))
+
+
+def load_rtmpose_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Load a flax RTMPose variables tree into the port's `RTMPose`, strictly."""
+    return _load_strict(model, rtmpose_state_dict_from_flax(variables))
+
+
+def load_centernet_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Load a flax CenterNetDetector variables tree into the port's, strictly."""
+    return _load_strict(model, centernet_state_dict_from_flax(variables))
+
+
+def load_rtmdet_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Load a flax RTMDet variables tree into the port's `RTMDet`, strictly."""
+    return _load_strict(model, rtmdet_state_dict_from_flax(variables))
+
+
+def load_yolox_from_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Load a flax YOLOX variables tree into the port's `YOLOX`, strictly."""
+    return _load_strict(model, yolox_state_dict_from_flax(variables))

@@ -1,11 +1,12 @@
-"""Model registry: name -> built estimator, the port's subset of the JAX
+"""Model registry: name -> built estimator or detector, as the JAX
 package's ``models/registry.py``.
 
-The names and configurations are the JAX registry's for the HRNet and Swin
-heatmap families.  The RTMPose (SimCC) family is not ported yet: its names
-raise `NotImplementedError` (ROADMAP.md, Queue A item 8).  Weights come
-from a flax variables tree (numpy arrays, through `models.convert`) or are
-drawn from a seed (`init_hrnet_` / `init_swin_` below).
+The names and configurations are the JAX registry's: the HRNet and Swin
+heatmap families and the RTMPose SimCC family (`MODEL_REGISTRY`), and the
+person detectors (`DETECTOR_REGISTRY`: the full-frame detector, CenterNet,
+YOLOX and RTMDet).  Weights come from a flax variables tree (numpy arrays,
+through `models.convert`) or are drawn from a seed (the ``init_*_``
+functions below); MMDet/MMPose ``.pth`` checkpoints are not read.
 """
 
 from __future__ import annotations
@@ -15,13 +16,19 @@ from typing import Any
 
 import torch
 
-from .convert import load_hrnet_from_flax, load_swin_from_flax
+from .convert import (load_centernet_from_flax, load_hrnet_from_flax, load_rtmdet_from_flax,
+                      load_rtmpose_from_flax, load_swin_from_flax, load_yolox_from_flax)
+from .detector import CenterNetDetector, SinglePersonDetector
 from .hrnet import HRNET_W32, HRNET_W48, HRNet
+from .rtmdet import RTMDet
+from .rtmpose import RTMPOSE_M, RTMPOSE_S, RTMPOSE_T, RTMPose, calibrating_batch_norm
 from .swin import SWIN_B, SWIN_L, SwinPose
 from .topdown import TopDownEstimator
+from .yolox import YOLOX
 
-__all__ = ["MODEL_REGISTRY", "NOT_PORTED", "resolve_model_name", "build_estimator",
-           "build_model", "init_hrnet_", "init_swin_"]
+__all__ = ["MODEL_REGISTRY", "DETECTOR_REGISTRY", "resolve_model_name", "build_estimator",
+           "build_model", "build_detector", "init_hrnet_", "init_swin_",
+           "init_rtmpose_", "init_centernet_", "init_rtmdet_", "init_yolox_"]
 
 # name -> (family, cfg, decode, input_size (w, h))
 MODEL_REGISTRY: dict[str, dict[str, Any]] = {
@@ -34,6 +41,13 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
                     "input_size": (192, 256)},
     "coco_swin-l": {"family": "swin", "cfg": SWIN_L, "decode": "heatmap",
                     "input_size": (192, 256)},
+    # The reference's SimCC family (`coco_rtmpose-t`, BASELINE config 3).
+    "coco_rtmpose-t": {"family": "rtmpose", "cfg": RTMPOSE_T, "decode": "simcc",
+                       "input_size": (192, 256)},
+    "coco_rtmpose-s": {"family": "rtmpose", "cfg": RTMPOSE_S, "decode": "simcc",
+                       "input_size": (192, 256)},
+    "coco_rtmpose-m": {"family": "rtmpose", "cfg": RTMPOSE_M, "decode": "simcc",
+                       "input_size": (256, 256)},
     "test_tiny": {"family": "hrnet",
                   "cfg": {"widths": (8, 16, 32, 64), "modules": (1, 1, 1, 1), "stem": 16},
                   "decode": "heatmap", "input_size": (32, 64)},
@@ -55,16 +69,10 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
                            "decode": "heatmap", "input_size": (192, 256)},
 }
 
-# Names of the JAX registry whose family the port does not have yet.
-NOT_PORTED = ("coco_rtmpose-t", "coco_rtmpose-s", "coco_rtmpose-m")
-
 _ALIASES = {"coco_swin_b": "coco_swin-b", "coco_swin_l": "coco_swin-l"}
 
 
 def resolve_model_name(name: str) -> str:
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"'{name}' (RTMPose, SimCC decode) is not ported yet; "
-                                  "see ROADMAP.md, Queue A item 8")
     if name in MODEL_REGISTRY:
         return name
     if name in _ALIASES:
@@ -122,10 +130,106 @@ def init_swin_(model: SwinPose, generator: torch.Generator) -> SwinPose:
     return model
 
 
-def build_model(family: str, cfg, device="cuda", variables=None, seed: int = 0):
-    """A 17-joint bf16 HRNet or SwinPose (Swin: every block through the
-    block kernels) on ``device``, with weights from ``variables`` (a flax
-    variables tree of numpy arrays) or drawn from seed ``seed``."""
+@torch.no_grad()
+def _init_lecun_(model: torch.nn.Module, generator: torch.Generator,
+                 batch: torch.Tensor) -> torch.nn.Module:
+    """Random weights from ``generator``, drawn on the CPU: conv and Dense
+    kernels N(0, 1/fan_in) (fan-in per group for depthwise convs), the GAU's
+    γ N(0, 0.02²) and β 0 (flax's initialisers), BatchNorm, ScaleNorm gains
+    and residual scales at 1, zero biases; then the BatchNorm statistics
+    from one forward of ``batch`` on the CPU (`calibrating_batch_norm`: mean
+    0, the variance of every channel the layer's mean square), so that
+    every layer sees inputs of unit scale.
+    With the statistics at identity, each SiLU layer shrinks the scale
+    (RTMDet-m's head would see ~1e-7 and score every candidate
+    sigmoid(bias)); a fixed gain instead overshoots through the residual
+    sums; per-channel batch variances of random frames' deep, nearly
+    constant maps amplify any other input.  On the CPU, so that the card and
+    the CPU get the same weights."""
+    for name, p in model.named_parameters():
+        if name.endswith("gamma"):
+            w = 0.02 * torch.randn(p.shape, generator=generator)
+        elif p.dim() >= 2 and not name.endswith("beta"):
+            w = torch.randn(p.shape, generator=generator) / math.sqrt(p[0].numel())
+        elif name.endswith(("weight", ".g", "res_scale")):  # 1-d weights: BatchNorm scales
+            w = torch.ones(p.shape)
+        else:
+            w = torch.zeros(p.shape)
+        p.copy_(w.to(p.device))
+    device = next(model.parameters()).device
+    with calibrating_batch_norm():
+        model.to("cpu")(batch)
+    return model.to(device)
+
+
+def _frames_batch(generator: torch.Generator) -> torch.Tensor:
+    """The detectors' calibration batch: two random [0, 1] frames of 256x256."""
+    return torch.rand((2, 3, 256, 256), generator=generator)
+
+
+# Random-weight calibration of the heads (the ``init_*_`` below).
+# cls_x / cls_y kernels x this: the logits' std goes from about 1 to 6 and
+# 0.83 of the joints of random crops clear the 0.3 gate (rtmpose-t, 16 random
+# 256x256 frames on the CPU; 0 at gain 1, 0.51 at 4, 0.96 at 8).
+RTMPOSE_LOGIT_GAIN = 6.0
+RTMDET_REG_BIAS = 3.0  # rtm_reg bias, in strides: boxes of about 6 strides
+YOLOX_WH_BIAS = 2.0  # conv_reg's log-size bias: boxes of exp(2) ≈ 7.4 strides
+CENTERNET_WH_BIAS = 48.0  # the wh head's bias: softplus(48) ≈ 48 px boxes
+
+
+@torch.no_grad()
+def init_rtmpose_(model: RTMPose, generator: torch.Generator) -> RTMPose:
+    """`_init_lecun_` (calibrated on two N(0, 1) crops), with the SimCC
+    classifiers ``cls_x`` / ``cls_y`` scaled by ``RTMPOSE_LOGIT_GAIN``: at
+    unit scale, random logits over 384 and 512 bins peak near 0.02 after
+    the softmax, under the pipeline's 0.3 confidence gate, and every joint
+    would be NaN."""
+    w, h = model.input_size
+    _init_lecun_(model, generator, torch.randn((2, 3, h, w), generator=generator))
+    model.cls_x.weight.mul_(RTMPOSE_LOGIT_GAIN)
+    model.cls_y.weight.mul_(RTMPOSE_LOGIT_GAIN)
+    return model
+
+
+@torch.no_grad()
+def init_rtmdet_(model: RTMDet, generator: torch.Generator) -> RTMDet:
+    """`_init_lecun_`, with each level's ``rtm_reg`` bias at
+    ``RTMDET_REG_BIAS``: zero-mean distances give relu(reg) = 0 on both sides
+    of an axis for about 1/16 of the candidates, a box of zero size and an
+    infinite crop scale; the bias makes random boxes span tens of pixels."""
+    _init_lecun_(model, generator, _frames_batch(generator))
+    for lvl in range(3):
+        getattr(model.head, f"rtm_reg_{lvl}").bias.fill_(RTMDET_REG_BIAS)
+    return model
+
+
+@torch.no_grad()
+def init_yolox_(model: YOLOX, generator: torch.Generator) -> YOLOX:
+    """`_init_lecun_`, with each level's ``conv_reg`` log-size bias (channels
+    2, 3) at ``YOLOX_WH_BIAS``, so that a random box is wider than the
+    distance its centre strays from its cell and stays of positive size once
+    clipped to the frame."""
+    _init_lecun_(model, generator, _frames_batch(generator))
+    for lvl in range(3):
+        getattr(model.head, f"conv_reg_{lvl}").bias[2:].fill_(YOLOX_WH_BIAS)
+    return model
+
+
+@torch.no_grad()
+def init_centernet_(model: CenterNetDetector, generator: torch.Generator) -> CenterNetDetector:
+    """`_init_lecun_`, with the size head's bias at ``CENTERNET_WH_BIAS``
+    (softplus of zero-mean logits gives boxes under a pixel wide)."""
+    _init_lecun_(model, generator, _frames_batch(generator))
+    model.Conv_1.bias.fill_(CENTERNET_WH_BIAS)
+    return model
+
+
+def build_model(family: str, cfg, device="cuda", variables=None, seed: int = 0,
+                input_size=(192, 256)):
+    """A 17-joint bf16 HRNet, SwinPose (Swin: every block through the block
+    kernels) or RTMPose (at ``input_size`` (w, h)) on ``device``, with
+    weights from ``variables`` (a flax variables tree of numpy arrays) or
+    drawn from seed ``seed``."""
     gen = torch.Generator().manual_seed(seed)
     if family == "hrnet":
         model = HRNet(cfg=cfg, device=device)
@@ -135,7 +239,11 @@ def build_model(family: str, cfg, device="cuda", variables=None, seed: int = 0):
         model = SwinPose(cfg=cfg, device=device)
         return init_swin_(model, gen) if variables is None else load_swin_from_flax(
             model, variables)
-    raise NotImplementedError(f"family {family!r} is not ported; see ROADMAP.md")
+    if family == "rtmpose":
+        model = RTMPose(input_size=input_size, cfg=cfg, device=device)
+        return init_rtmpose_(model, gen) if variables is None else load_rtmpose_from_flax(
+            model, variables)
+    raise ValueError(f"unknown family {family!r}")
 
 
 def build_estimator(name: str = "coco_hrnet_w32", device="cuda", variables=None,
@@ -144,5 +252,58 @@ def build_estimator(name: str = "coco_hrnet_w32", device="cuda", variables=None,
     ``variables``: a flax variables tree of numpy arrays for the model; None
     draws random weights from ``torch.Generator`` seed ``seed``."""
     spec = MODEL_REGISTRY[resolve_model_name(name)]
-    model = build_model(spec["family"], spec["cfg"], device, variables, seed)
-    return TopDownEstimator(model, input_size=spec["input_size"], device=device)
+    model = build_model(spec["family"], spec["cfg"], device, variables, seed,
+                        spec["input_size"])
+    return TopDownEstimator(model, input_size=spec["input_size"], decode=spec["decode"],
+                            device=device)
+
+
+# name -> (family, cfg): the JAX registry's detector names.
+DETECTOR_REGISTRY: dict[str, dict[str, Any]] = {
+    "full_frame": {"family": "full_frame", "cfg": None},
+    "centernet_w32": {"family": "centernet", "cfg": {"width": 32}},
+    "centernet_w16": {"family": "centernet", "cfg": {"width": 16}},
+    "test_centernet_w8": {"family": "centernet", "cfg": {"width": 8}},
+    # The reference's named zoo detector (`yolo_base`).
+    "yolox_tiny": {"family": "yolox", "cfg": {"widen": 0.375, "deepen": 0.33, "num_classes": 80}},
+    "yolox_s": {"family": "yolox", "cfg": {"widen": 0.5, "deepen": 0.33, "num_classes": 80}},
+    "test_yolox_micro": {"family": "yolox",
+                         "cfg": {"widen": 0.125, "deepen": 0.33, "num_classes": 80}},
+    # The reference's primary named detector (`coco_base` = RTMDet-m, person only).
+    "rtmdet_m": {"family": "rtmdet", "cfg": {"widen": 0.75, "deepen": 0.67, "num_classes": 1,
+                                             "neck_out": 192, "num_csp_blocks": 2}},
+    "rtmdet_tiny": {"family": "rtmdet", "cfg": {"widen": 0.375, "deepen": 0.167,
+                                                "num_classes": 1, "neck_out": 96,
+                                                "num_csp_blocks": 1}},
+    "test_rtmdet_micro": {"family": "rtmdet", "cfg": {"widen": 0.125, "deepen": 0.167,
+                                                      "num_classes": 1, "neck_out": 32,
+                                                      "num_csp_blocks": 1}},
+}
+
+_DETECTOR_FAMILIES = {
+    "centernet": (CenterNetDetector, init_centernet_, load_centernet_from_flax),
+    "rtmdet": (RTMDet, init_rtmdet_, load_rtmdet_from_flax),
+    "yolox": (YOLOX, init_yolox_, load_yolox_from_flax),
+}
+
+
+def build_detector(name: str = "full_frame", device="cuda", variables=None, seed: int = 0,
+                   bbox_thr: float = 0.3, select: str = "top1", topk: int = 4,
+                   select_window: int = 9, select_lam: float = 4.0) -> SinglePersonDetector:
+    """A ready `SinglePersonDetector` by registry name, on ``device``, bf16.
+    ``"full_frame"`` has no model; the others take their weights from
+    ``variables`` (a flax variables tree of numpy arrays) or draw them from
+    ``torch.Generator`` seed ``seed``.  The selection options: as
+    `SinglePersonDetector`."""
+    if name not in DETECTOR_REGISTRY:
+        raise KeyError(f"unknown detector '{name}'; available: {sorted(DETECTOR_REGISTRY)}")
+    spec = DETECTOR_REGISTRY[name]
+    model = None
+    if spec["family"] != "full_frame":
+        cls, init, load = _DETECTOR_FAMILIES[spec["family"]]
+        model = cls(**spec["cfg"], device=device)
+        gen = torch.Generator().manual_seed(seed)
+        model = init(model, gen) if variables is None else load(model, variables)
+    return SinglePersonDetector(model, bbox_thr=bbox_thr, select=select, topk=topk,
+                                select_window=select_window, select_lam=select_lam,
+                                device=device)

@@ -1,8 +1,9 @@
-"""Top-down 2D pose pipeline: bbox -> crop -> heatmap model -> decode -> image space.
+"""Top-down 2D pose pipeline: bbox -> crop -> model -> decode -> image space.
 
-Counterpart of the JAX package's ``models/topdown.py`` (heatmap decode for
-the HRNet and Swin families, with flip-TTA and the DARK decode; SimCC is
-not ported).  Layouts follow the JAX package:
+Counterpart of the JAX package's ``models/topdown.py``: the heatmap decode
+for the HRNet and Swin families (with flip-TTA and the DARK decode) and the
+SimCC decode for RTMPose (flip-TTA averages probabilities; a diagonal
+covariance from each axis's softmax variance).  Layouts follow the JAX package:
 frames (B, H, W, 3), crops (B, in_h, in_w, 3), heatmaps (B, K, h, w),
 keypoints (B, K, 3) = (x_px, y_px, score), gaussians (B, K, 6) =
 [mean_x, mean_y, var_x, cov_xy, cov_xy, var_y] in image pixels.
@@ -24,7 +25,9 @@ import torch
 from ..ops.fused_decode import fused_heatmap_decode
 from ..ops.heatmap_decode import heatmap_argmax_decode, heatmap_dark_decode
 from ..ops.moments import heatmap_moments
+from ..ops.simcc import simcc_decode
 from ..training.augment import flip_permutation
+from .rtmpose import RTMPose
 from .swin import SwinPose
 
 __all__ = [
@@ -105,40 +108,46 @@ def preprocess_crops(frames, bboxes, input_size, bbox_padding: float = 1.25):
 
 
 class TopDownEstimator:
-    """Batched top-down 2D pose estimator (heatmap models).
+    """Batched top-down 2D pose estimator.
 
-    - ``model``: the port's `HRNet` or `SwinPose`, weights loaded, on
-      ``device``.
+    - ``model``: the port's `HRNet` or `SwinPose` (``decode="heatmap"``) or
+      `RTMPose` (``decode="simcc"``), weights loaded, on ``device``.
     - ``input_size``: (width, height) of the crop fed to the model.
     - ``use_fused_decode``: decode through the CUDA kernel
       (`ops.fused_heatmap_decode`) instead of `heatmap_argmax_decode` +
-      `heatmap_moments`.
+      `heatmap_moments`; heatmap decode only, ignored for SimCC.
     - ``use_fused_stage1``: run HRNet's stage 1 through the Bottleneck
       kernel (`ops.make_fused_stage1`).  A `SwinPose` picks its kernels
       itself (``use_pallas_attention``).
     - ``flip_test``: flip-TTA: the mirrored crops through the model again,
       their heatmaps mirrored back, left/right joints swapped (the
       ``connectivity_type`` swap table), shifted one heatmap pixel right
-      when ``flip_shift``, and averaged with the direct ones.
+      when ``flip_shift``, and averaged with the direct ones; for SimCC the
+      two softmaxes are averaged (x bins reversed, joints swapped, no
+      shift) and decoded as ``log(p + 1e-12)``.
     - ``decode_mode``: "default" (argmax + ±0.25 shift) or "dark"
       (`ops.heatmap_dark_decode`); applies to the unfused decode only, as in
       the JAX package: with ``use_fused_decode`` the kernel decodes.
     """
 
-    def __init__(self, model, input_size=(192, 256), heatmap_threshold: float = 0.01,
-                 bbox_padding: float = 1.25, use_fused_decode: bool = False,
-                 use_fused_stage1: bool = False, flip_test: bool = False,
-                 flip_shift: bool = True, decode_mode: str = "default",
+    def __init__(self, model, input_size=(192, 256), decode: str = "heatmap",
+                 heatmap_threshold: float = 0.01, bbox_padding: float = 1.25,
+                 use_fused_decode: bool = False, use_fused_stage1: bool = False,
+                 flip_test: bool = False, flip_shift: bool = True, decode_mode: str = "default",
                  connectivity_type: str = "coco", device="cuda"):
+        if decode not in ("heatmap", "simcc"):
+            raise ValueError(f"unknown decode '{decode}'")
         if decode_mode not in ("default", "dark"):
             raise ValueError(f"unknown decode_mode '{decode_mode}'")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
-        self.family = "swin" if isinstance(model, SwinPose) else "hrnet"
+        self.family = ("swin" if isinstance(model, SwinPose)
+                       else "rtmpose" if isinstance(model, RTMPose) else "hrnet")
         self.input_size = tuple(input_size)
+        self.decode = decode
         self.heatmap_threshold = float(heatmap_threshold)
         self.bbox_padding = float(bbox_padding)
-        self.use_fused_decode = bool(use_fused_decode)
+        self.use_fused_decode = bool(use_fused_decode) and decode == "heatmap"
         self.flip_shift = bool(flip_shift)
         self.decode_mode = decode_mode
         self.flip_perm = None  # the joint permutation when flip-TTA is on
@@ -174,6 +183,8 @@ class TopDownEstimator:
 def _predict(est: TopDownEstimator, frames: torch.Tensor, bboxes: torch.Tensor) -> dict:
     in_w, in_h = est.input_size
     crops, scale, offset = preprocess_crops(frames, bboxes, est.input_size, est.bbox_padding)
+    if est.decode == "simcc":
+        return _predict_simcc(est, crops, scale, offset)
     heat = _heatmaps(est, crops)  # (B, K, h, w) f32
     if est.flip_perm is not None:
         # Flip-TTA: the mirrored crops, their maps mirrored back (torch.flip:
@@ -194,7 +205,39 @@ def _predict(est: TopDownEstimator, frames: torch.Tensor, bboxes: torch.Tensor) 
         else:
             xy_hm, score = heatmap_argmax_decode(heat)
         moments = heatmap_moments(heat, threshold=est.heatmap_threshold)
-    return _pushforward(in_h / heat.shape[-2], xy_hm, score, moments, scale, offset)
+    stride = in_h / heat.shape[-2]
+    return _pushforward(xy_hm * stride, score, moments[..., :2] * stride,
+                        moments[..., 2:] * stride * stride, scale, offset)
+
+
+def _predict_simcc(est: TopDownEstimator, crops: torch.Tensor, scale, offset) -> dict:
+    """RTMPose's logits -> SimCC decode -> image pixels, with its diagonal
+    covariance: SimCC's two axes are independent classifiers, so the
+    per-axis softmax variances (bins², /split_ratio² = 4 to crop px²) are
+    the full second moments and the cross term is 0."""
+    simcc_x, simcc_y = est.model(crops.permute(0, 3, 1, 2))
+    if est.flip_perm is not None:
+        # Average the mirrored pass in probability space: softmaxes are not
+        # logit-additive, and softmax(log p) = p re-enters the decode.
+        fx, fy = est.model(torch.flip(crops, dims=[2]).permute(0, 3, 1, 2))
+        px = 0.5 * (torch.softmax(simcc_x, -1)
+                    + torch.flip(torch.softmax(fx, -1)[:, est.flip_perm], dims=[-1]))
+        py = 0.5 * (torch.softmax(simcc_y, -1) + torch.softmax(fy, -1)[:, est.flip_perm])
+        simcc_x, simcc_y = torch.log(px + 1e-12), torch.log(py + 1e-12)
+    xy_crop, score = simcc_decode(simcc_x, simcc_y)
+    var_x = _simcc_axis_var(simcc_x) / 4.0  # split_ratio²
+    var_y = _simcc_axis_var(simcc_y) / 4.0
+    zeros = torch.zeros_like(var_x)
+    return _pushforward(xy_crop, score, xy_crop, torch.stack([var_x, zeros, zeros, var_y], -1),
+                        scale, offset)
+
+
+def _simcc_axis_var(logits: torch.Tensor) -> torch.Tensor:
+    """Variance of the per-axis softmax distribution, in bins²."""
+    prob = torch.softmax(logits, dim=-1)
+    coords = torch.arange(logits.shape[-1], dtype=prob.dtype, device=prob.device)
+    mean = (prob * coords).sum(-1)
+    return (prob * (coords - mean[..., None]) ** 2).sum(-1)
 
 
 def _heatmaps(est: TopDownEstimator, crops: torch.Tensor) -> torch.Tensor:
@@ -205,11 +248,9 @@ def _heatmaps(est: TopDownEstimator, crops: torch.Tensor) -> torch.Tensor:
     return est.model(crops.permute(0, 3, 1, 2), fused_stage1=est.fused_stage1)
 
 
-def _pushforward(stride, xy_hm, score, moments, scale, offset) -> dict:
-    """Heatmap-pixel decode -> image pixels through the crop's inverse affine."""
-    xy_crop = xy_hm * stride
-    mean_crop = moments[..., :2] * stride
-    cov_crop = moments[..., 2:] * stride * stride
+def _pushforward(xy_crop, score, mean_crop, cov_crop, scale, offset) -> dict:
+    """Crop-pixel keypoints, means and covariances (var_x, cov, cov, var_y)
+    -> image pixels through the crop's inverse affine."""
     inv_scale = 1.0 / scale
     xy_img = xy_crop * inv_scale[:, None, :] + offset[:, None, :]
     mean_img = mean_crop * inv_scale[:, None, :] + offset[:, None, :]

@@ -6,6 +6,7 @@ from .geometry import (distort_normalized, make_homogeneous_rep_matrix, project_
                        projection_matrix, rodrigues_matrix, rodrigues_vector, rotation_conversion)
 from .heatmap_decode import heatmap_argmax_decode, heatmap_dark_decode
 from .moments import heatmap_moments
+from .simcc import simcc_decode
 from .swin_block import fused_swin_block, swin_block_plain, swin_gemm
 from .triangulation import (get_pose_3d, triangulate_dlt, triangulate_nview, triangulate_points,
                             triangulate_top2)
@@ -32,6 +33,7 @@ __all__ = [
     "rodrigues_matrix",
     "rodrigues_vector",
     "rotation_conversion",
+    "simcc_decode",
     "swin_block_plain",
     "swin_gemm",
     "triangulate_dlt",

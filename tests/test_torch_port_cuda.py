@@ -414,3 +414,108 @@ def test_dark_decode_matches_cpu(card):
     err_ref = (xy_ref.double() - xy64).abs().max().item()
     assert err <= 2 * err_ref + 1e-5, (err, err_ref)
     assert torch.equal(s.cpu(), s_ref)
+
+
+# The detector and SimCC pipelines (plain PyTorch in front of the kernels),
+# small, card against CPU: the CPU path on the card's own detector outputs or
+# SimCC logits replayed gives the card's boxes and scores exactly and its
+# outputs where both decoded the same peaks (kpts_2d within 1e-2 px,
+# kpts_3d within 1e-2 + 1e-3·|x|); end to end with the detector in float32
+# (TF32 off), the same boxes within 1e-2 px.  The SimCC replay also decodes
+# at least 0.95 of the joints alike on both sides (gated ones included).
+DET_SHAPE = (4, 2, 64, 96, 3)
+TINY_HRNET = ({"widths": (8, 16, 32, 64), "modules": (1, 1, 1, 1), "stem": 16}, (32, 64))
+
+
+def _same_outputs(a, b):
+    same = ((a["kpts_2d"][:, :, :2] - b["kpts_2d"][:, :, :2]).abs() < 1e-2).all(2).all(-1)
+    both = same & torch.isfinite(a["kpts_3d"]).all(-1) & torch.isfinite(b["kpts_3d"]).all(-1)
+    assert same.float().mean() >= 0.5 and both.sum() >= 5
+    d = (a["kpts_3d"][both] - b["kpts_3d"][both]).abs()
+    assert (d <= 1e-2 + 1e-3 * b["kpts_3d"][both].abs()).all()
+
+
+def _record(owner, outs):
+    """Wraps ``owner.model`` so that its outputs are appended to ``outs``."""
+    model = owner.model
+
+    def record(x):
+        outs.append(model(x))
+        return outs[-1]
+
+    owner.model = record
+
+
+@pytest.mark.parametrize("select", ["top1", "consistent"])
+def test_detector_pipeline_matches_cpu(card, select):
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.models import RTMDet, SinglePersonDetector
+    from multi_camera_3d_pose_estimation_tpu_torch.models.registry import (DETECTOR_REGISTRY,
+                                                                           init_rtmdet_)
+
+    cfg, size = TINY_HRNET
+    frames = torch.randint(0, 256, DET_SHAPE, generator=torch.Generator().manual_seed(5),
+                           dtype=torch.uint8)
+    card_p, cpu_p = (build_pipeline(cfg, size, DET_SHAPE, device=d, seed=3,
+                                    detector="test_rtmdet_micro", detector_select=select)
+                     for d in (card, "cpu"))
+    outs = []
+    _record(card_p.detector, outs)
+    det_a = [t.cpu() for t in card_p.detect(frames)]
+    a = {k: v.float().cpu() for k, v in card_p.run(frames).items()}
+    replay = iter([{k: v.cpu() for k, v in o.items() if k != "raw"} for o in outs])
+    cpu_p.detector.model = lambda x: next(replay)
+    det_b = list(cpu_p.detect(frames))
+    b = {k: v.float().cpu() for k, v in cpu_p.run(frames).items()}
+    assert all(torch.equal(x, y) for x, y in zip(det_a, det_b))  # boxes, scores, kept
+    _same_outputs(a, b)
+    # End to end, the detector in float32 on both sides.
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    for d in (card, "cpu"):
+        m = RTMDet(**DETECTOR_REGISTRY["test_rtmdet_micro"]["cfg"], dtype=torch.float32, device=d)
+        det = SinglePersonDetector(init_rtmdet_(m, torch.Generator().manual_seed(3)),
+                                   select=select, device=d)
+        p = build_pipeline(cfg, size, DET_SHAPE, device=d, seed=3, detector=det)
+        res[d] = ({k: v.float().cpu() for k, v in p.run(frames).items()}, p.detect(frames)[0].cpu())
+    torch.backends.cudnn.allow_tf32 = prev
+    (a, ba), (b, bb) = res[card], res["cpu"]
+    ok = ((ba - bb).abs() < 1e-2).all(-1).all(-1)
+    assert ok.float().mean() >= 0.5
+    _same_outputs({k: v[ok] for k, v in a.items()}, {k: v[ok] for k, v in b.items()})
+
+
+def test_simcc_flip_pipeline_matches_cpu(card):
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+
+    shape = (4, 2, 96, 80, 3)
+    frames = torch.randint(0, 256, shape, generator=torch.Generator().manual_seed(6),
+                           dtype=torch.uint8)
+    cfg = {"widen": 0.125, "deepen": 0.167, "embed": 32}
+    card_p, cpu_p = (build_pipeline(cfg, (64, 96), shape, device=d, seed=3, family="rtmpose",
+                                    flip_test=True) for d in (card, "cpu"))
+    outs = []
+    _record(card_p.estimator, outs)
+    a = {k: v.float().cpu() for k, v in card_p.run(frames).items()}
+    replay = iter([tuple(t.cpu() for t in o) for o in outs])
+    cpu_p.estimator.model = lambda x: next(replay)
+    b = {k: v.float().cpu() for k, v in cpu_p.run(frames).items()}
+    assert len(outs) == 2  # the direct and the mirrored pass
+    # The same logits: every joint decoded alike, gated ones (NaN) included.
+    xa, xb = a["kpts_2d"][:, :, :2], b["kpts_2d"][:, :, :2]
+    agree = (((xa - xb).abs() < 1e-2) | (torch.isnan(xa) & torch.isnan(xb))).all(2)
+    assert agree.float().mean() >= 0.95
+    _same_outputs(a, b)
+
+
+def test_full_width_detectors_draw_usable_boxes(card):
+    """RTMDet-m and YOLOX-s at full width on the card, seeded random weights:
+    every frame's top box finite and of positive size inside the frame."""
+    from multi_camera_3d_pose_estimation_tpu_torch.models.registry import build_detector
+
+    frames = torch.randint(0, 256, (16, 256, 256, 3), generator=torch.Generator().manual_seed(7),
+                           dtype=torch.uint8)
+    for name in ("rtmdet_m", "yolox_s", "centernet_w32"):
+        boxes = build_detector(name, device=card, bbox_thr=0.0).detect(frames.to(card))
+        assert torch.isfinite(boxes).all() and ((boxes[:, 2:] - boxes[:, :2]) > 0).all(), name

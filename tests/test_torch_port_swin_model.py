@@ -111,8 +111,8 @@ def test_converter_is_strict(small):
 
 def test_registry_builds_a_swin_estimator():
     assert registry.resolve_model_name("coco_swin_b") == "coco_swin-b"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build_estimator("coco_rtmpose-t", device="cpu")
+    rtm = registry.build_estimator("coco_rtmpose-t", device="cpu")
+    assert rtm.family == "rtmpose" and rtm.decode == "simcc"
     with pytest.raises(KeyError):
         registry.resolve_model_name("coco_swin-x")
     est = registry.build_estimator("test_swin_128", device="cpu", seed=2)
