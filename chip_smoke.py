@@ -93,8 +93,26 @@ Phases (each synchronises the card; any failure exits non-zero):
    card's own detector outputs replayed (boxes and scores equal), and end
    to end with the detector in float32 where both sides kept the same box;
    RTMPose with flip-TTA on the card's own SimCC logits replayed;
-19. one JSON line with every kernel (with its launches on phases 15-17), the
-   script's wall time, the card's line, and the final
+19. the artifact chain at full width: a project directory in a temporary
+   folder (the synthetic 2-camera rig's ``.dat`` files and
+   ``camera_names.pkl`` written by the port's ``io``, an HRNet-W32 ``.npz``
+   checkpoint in the JAX package's format), the pipeline built as
+   `cli.estimate_pose_from_video` builds it with the stage-1 and decode
+   kernels on; 1024 frames x 2 cameras of 256x256, cycled from 3 host
+   blocks made once, streamed through `io.stage_blocks` (pinned ring, copy
+   stream) and `cli.run_pipeline_on_blocks` (inflight 2) in blocks of 256
+   and of 64: the counts set to 0 just before each streamed run and read
+   just after (4 Bottleneck and 1 decode launch per block), frames/s beside
+   the same pipeline in memory and phase 3, the H2D copy time (copy-stream
+   events), the steady state and the one-time fill of both from runs of 1024
+   and 4096 frames, and the card's busy share over a profiler window; the streamed
+   artifacts equal to ``pipeline.run`` in memory bit for bit (a 1000-frame
+   run with a padded last block, and blocks of 64); the cached-2D reuse
+   path through `cli.estimate_pose_from_video` (no video read) against
+   the streamed kpts_3d; the refine CLI (interpolation + SGD) on a
+   128-frame cut, ``--device cuda`` against ``--device cpu``;
+20. one JSON line with every kernel (with its launches on phases 15-17 and
+   19), the script's wall time, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
@@ -1330,6 +1348,312 @@ def check_simcc_replay(gen, dev) -> None:
           "the SimCC decode of the card's logits agrees on the card and the CPU")
 
 
+# The artifact chain (phase 19).
+STREAM_FRAMES, TAIL_FRAMES = 1024, 1000  # streamed frames; a run whose last block is padded
+LONG_FRAMES = 4096  # a longer run: with STREAM_FRAMES, separates the steady state from the fill
+STREAM_BLOCKS = (256, 64)  # the headline block and the CLI's default block_size
+N_SOURCE = 3  # distinct host blocks of T frames, made once and cycled
+REFINE_CUT = 128  # frames of the artifacts the refine CLI runs on
+# The cached-2D reuse path triangulates the f32 kpts_2d artifact in float64;
+# the streamed kpts_3d came from the pipeline's f32 top-2 DLT.  Per joint,
+# r = |reuse - streamed| / max(|X|, 1): the median r <= 1e-5, at least 95%
+# of joints r <= 1e-4 and every joint r <= 0.1.  Random-weight peaks give
+# some near-parallel ray pairs, whose f32 solve is ill-conditioned (the CPU
+# at a small size: median 4.6e-7, 0.9945 of joints under 1e-4, largest
+# 1.4e-4); a wrong camera, camera order or method gives r of order 1.
+REUSE_MEDIAN, REUSE_RTOL, REUSE_SHARE, REUSE_MAX = 1e-5, 1e-4, 0.95, 0.1
+SGD_MPJPE_TOL = 1.0  # card against CPU, in the trajectory's units (mm)
+
+
+def device_busy_ms(prof) -> float:
+    """Union of the device intervals (kernels and copies, on every stream)
+    in a profiler window, in ms."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def host_blocks(sources, block: int, n_frames: int):
+    """``(block, n_valid)`` host blocks of ``n_frames`` frames cut from the
+    cycled ``sources`` (each T frames); the last one zero-padded."""
+    import numpy as np
+
+    for start in range(0, n_frames, block):
+        n = min(block, n_frames - start)
+        src = sources[(start // T) % len(sources)]
+        off = start % T
+        if n == block:
+            yield src[off:off + block], n
+        else:
+            out = np.zeros((block,) + src.shape[1:], np.uint8)
+            out[:n] = src[off:off + n]
+            yield out, n
+
+
+def in_memory(pipe, blocks, dev):
+    """``pipe.run`` on each host block moved to the card beforehand, the
+    valid frames' results concatenated (numpy)."""
+    import numpy as np
+    import torch
+
+    outs = [(pipe.run(torch.from_numpy(np.ascontiguousarray(b)).to(dev)), n) for b, n in blocks]
+    return tuple(np.concatenate([o[k][:n].cpu().numpy() for o, n in outs])
+                 for k in ("kpts_2d", "heatmaps_2d", "kpts_3d"))
+
+
+def run_refine_cli(args: list) -> tuple[float, list]:
+    """`cli.refine.main(args)`: (seconds, the lines it printed)."""
+    import contextlib
+    import io
+
+    from multi_camera_3d_pose_estimation_tpu_torch.cli import refine
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        refine.main(args)
+    return time.perf_counter() - t0, buf.getvalue().splitlines()
+
+
+def run_artifact_chain(dev, phase3_fps: float) -> dict:
+    """The user's chain on the card: a project directory (the synthetic
+    2-camera rig's .dat files and camera_names.pkl, an HRNet-W32 .npz
+    checkpoint), the pipeline built as `cli.estimate_pose_from_video` builds
+    it (stage-1 and decode kernels on), 1024 frames streamed through
+    `io.stage_blocks` and `cli.run_pipeline_on_blocks` at blocks of 256 and
+    64, the cached-2D reuse path through the real entry, and the refine CLI
+    card against CPU.  ``conf_threshold=-inf`` keeps every joint (as
+    ``tests/test_e2e.py``'s -1 does for its random weights; HRNet-W32's
+    random maps can peak below -1): the refinement then has a finite
+    trajectory to move (a NaN joint makes its window's costs NaN).  Each
+    streamed run follows a warm-up run of the same length, so that the
+    pinned ring and the copy stream's device blocks come from the caching
+    allocators as in a long run."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.cli.estimate import (
+        build_estimate_pipeline, estimate_pose_from_video, run_pipeline_on_blocks)
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import synthetic_rig
+    from multi_camera_3d_pose_estimation_tpu_torch.io import (
+        save_camera_intrinsics, save_camera_names, save_extrinsic_calibration_parameters,
+        stage_blocks, write_recording_log)
+    from multi_camera_3d_pose_estimation_tpu_torch.models import convert, registry
+
+    res = {"phase3_fps": phase3_fps}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. The project directory.
+        rig = synthetic_rig(C, H, W)
+        names = [f"cam{c}" for c in range(C)]
+        for c, name in enumerate(names):
+            save_camera_intrinsics(rig["K"][c], rig["dist"][c], name, root_path=tmp)
+            save_extrinsic_calibration_parameters(rig["R"][c], rig["T"][c], name, root_dir=tmp)
+        save_camera_names(dict(enumerate(names)), names[0], tmp)
+        ckpt = os.path.join(tmp, "coco_hrnet_w32.npz")
+        convert.save_checkpoint_npz(
+            registry.build_estimator("coco_hrnet_w32", device="cpu", seed=0).model, ckpt, "hrnet")
+        log(f"artifact chain: project in a temporary directory, checkpoint "
+            f"{os.path.getsize(ckpt) / 1e6:.1f} MB")
+
+        # 2. The pipeline, as estimate_pose_from_video builds it.
+        t0 = time.perf_counter()
+        pipe = build_estimate_pipeline(
+            tmp, pose_estimation_model="coco_hrnet_w32", checkpoint=ckpt,
+            conf_threshold=float("-inf"),
+            estimator_kwargs={"use_fused_stage1": True, "use_fused_decode": True}, device=dev)
+        for k in ("K", "R", "T", "dist"):  # the .dat files round-trip the rig's f32 values
+            check(torch.equal(pipe.cam_stack[k].cpu(), torch.as_tensor(rig[k])),
+                  f"the camera files give the rig's {k}")
+        log(f"  pipeline from the project and checkpoint in {time.perf_counter() - t0:.1f} s")
+
+        # 3. Stream the frames.
+        rng = np.random.default_rng(7)
+        sources = [rng.integers(0, 256, (T, C, H, W, 3), dtype=np.uint8) for _ in range(N_SOURCE)]
+        counters = kernel_counters()
+        res["launches"], streamed = {}, {}
+        for bs in STREAM_BLOCKS:
+            n_blocks = STREAM_FRAMES // bs
+            run_pipeline_on_blocks(pipe, stage_blocks(host_blocks(sources, bs, STREAM_FRAMES),
+                                                      dev), progress=False)  # warm-up
+            dev_blocks = [torch.from_numpy(np.ascontiguousarray(b)).to(dev)
+                          for b, _ in host_blocks(sources, bs, 2 * bs)]
+
+            def in_memory_s(n_frames):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(n_frames // bs):
+                    out = pipe.run(dev_blocks[i % 2])
+                out["kpts_3d"].cpu()
+                return time.perf_counter() - t0
+
+            mem = {n: in_memory_s(n) for n in (STREAM_FRAMES, LONG_FRAMES)}
+            del dev_blocks
+            for fn in counters.values():
+                fn.launches = 0
+            events = []
+            t0 = time.perf_counter()
+            streamed[bs] = run_pipeline_on_blocks(
+                pipe, stage_blocks(host_blocks(sources, bs, STREAM_FRAMES), dev,
+                                   copy_events=events), progress=False, inflight=2)
+            dt = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            t0 = time.perf_counter()
+            run_pipeline_on_blocks(pipe, stage_blocks(host_blocks(sources, bs, LONG_FRAMES), dev),
+                                   progress=False)
+            st = {STREAM_FRAMES: dt, LONG_FRAMES: time.perf_counter() - t0}
+            # t(n) = fill + n x per-block time: the steady state and the one-time
+            # fill (for the stream: the first block's host copy and H2D).
+            steady, fill = {}, {}
+            for what, t in (("streamed", st), ("in memory", mem)):
+                per_block = (t[LONG_FRAMES] - t[STREAM_FRAMES]) * bs / (LONG_FRAMES - STREAM_FRAMES)
+                steady[what] = bs / per_block
+                fill[what] = (t[STREAM_FRAMES] - n_blocks * per_block) * 1e3
+            copy_ms = [s.elapsed_time(e) for s, e in events]
+            fps, mem_fps = STREAM_FRAMES / dt, STREAM_FRAMES / mem[STREAM_FRAMES]
+            res[f"block_{bs}"] = {
+                "fps": fps, "in_memory_fps": mem_fps, "steady_fps": steady["streamed"],
+                "in_memory_steady_fps": steady["in memory"], "fill_ms": fill["streamed"],
+                "in_memory_fill_ms": fill["in memory"], "h2d_ms_per_block": float(np.mean(copy_ms)),
+                "h2d_GB_s": bs * C * H * W * 3 / np.mean(copy_ms) / 1e6}
+            res["launches"][bs] = launches
+            log(f"  streamed {STREAM_FRAMES} frames in blocks of {bs} ({n_blocks} blocks, "
+                f"inflight 2) in {dt:.3f} s -> {fps:.1f} frames/s; the same pipeline in memory "
+                f"{mem_fps:.1f} frames/s (phase 3: {phase3_fps:.1f}); H2D copy "
+                f"{np.mean(copy_ms):.3f} ms per block ({res[f'block_{bs}']['h2d_GB_s']:.2f} "
+                f"GB/s, copy-stream events); launches {launches}")
+            log(f"    from {STREAM_FRAMES} and {LONG_FRAMES} frames: steady state streamed "
+                f"{steady['streamed']:.1f} frames/s, in memory {steady['in memory']:.1f} "
+                f"({steady['streamed'] / steady['in memory']:.4f}); fill streamed "
+                f"{fill['streamed']:.3f} ms, in memory {fill['in memory']:.3f} ms")
+            check(launches == dict(bottleneck=4 * n_blocks, heatmap_decode=n_blocks, swin_gemm=0,
+                                   window_attention=0, window_attention_rows=0),
+                  f"blocks of {bs}: 4 Bottleneck and 1 decode launch per streamed block")
+            check(all(a.shape[0] == STREAM_FRAMES for a in streamed[bs]), "every frame returned")
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            window = 4 * bs if bs < T else 2 * bs
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                run_pipeline_on_blocks(pipe, stage_blocks(host_blocks(sources, bs, window), dev),
+                                       progress=False)
+                wall = time.perf_counter() - t0
+            busy = device_busy_ms(prof)
+            res[f"block_{bs}"]["busy_share"] = busy / (wall * 1e3)
+            log(f"    profiler window ({window} frames streamed): wall {wall * 1e3:.3f} ms, "
+                f"device busy (union over streams) {busy:.3f} ms = "
+                f"{busy / (wall * 1e3):.4f} of wall")
+
+        # 4. The streamed artifacts against pipeline.run in memory, bit for bit.
+        big, small = STREAM_BLOCKS
+        for bs, n_frames in ((big, TAIL_FRAMES), (small, STREAM_FRAMES)):
+            blocks = list(host_blocks(sources, bs, n_frames))
+            got = run_pipeline_on_blocks(pipe, stage_blocks(iter(blocks), dev), progress=False)
+            want = in_memory(pipe, blocks, dev)
+            same = all(a.shape == b.shape == (n_frames,) + a.shape[1:]
+                       and np.array_equal(a, b, equal_nan=True) for a, b in zip(got, want))
+            log(f"  {n_frames} frames in blocks of {bs} (last block {blocks[-1][1]} valid): "
+                f"streamed artifacts equal pipeline.run in memory bit for bit: {same}")
+            check(same, f"the streamed artifacts (blocks of {bs}) equal pipeline.run in memory")
+        k2, hm, k3 = streamed[big]
+        log(f"  artifacts kpts_2d {k2.shape} {k2.dtype}, heatmaps_2d {hm.shape}, kpts_3d "
+            f"{k3.shape}; finite: Gaussians {np.isfinite(hm).mean():.4f}, kpts_3d joints "
+            f"{np.isfinite(k3).all(-1).mean():.4f}")
+        check(k2.shape == (STREAM_FRAMES, 17, 3, C) and hm.shape == (STREAM_FRAMES, C, 17, 6)
+              and k3.shape == (STREAM_FRAMES, 17, 3), "artifact shapes")
+        check(np.isfinite(hm).all() and np.isfinite(k3).all(),
+              "finite Gaussians, and every joint triangulated with the gate off")
+        check(all(np.array_equal(a, b, equal_nan=True) for a, b in zip(streamed[big],
+                                                                   streamed[small])),
+              f"blocks of {big} and of {small} give the same artifacts")
+
+        # 5. The cached-2D reuse path through the real entry.
+        run_dir = os.path.join(tmp, "recordings")
+        os.makedirs(run_dir)
+        np.save(os.path.join(run_dir, "kpts_2d.npy"), k2)
+        np.save(os.path.join(run_dir, "heatmaps_2d.npy"), hm)
+        videos = [os.path.join(run_dir, f"{n}_synced.mp4") for n in names]  # never written
+        t0 = time.perf_counter()
+        _, _, k3_reuse = estimate_pose_from_video(videos, project_dir=tmp, save_dir=run_dir,
+                                                  device=dev)
+        dt = time.perf_counter() - t0
+        rel = (np.abs(k3_reuse - k3) / np.maximum(np.abs(k3_reuse).max(-1, keepdims=True), 1))
+        rel = rel.max(-1)
+        share = float((rel <= REUSE_RTOL).mean())
+        res.update(reuse_max_rel=float(rel.max()), reuse_share=share)
+        log(f"  cached-2D reuse (no video read, {dt:.3f} s): float64 kpts_3d {k3_reuse.shape} "
+            f"against the streamed f32 kpts_3d: r = |d| / max(|X|, 1) median "
+            f"{np.median(rel):.3g} (tolerance {REUSE_MEDIAN}), max {rel.max():.3g} (tolerance "
+            f"{REUSE_MAX}), share r <= "
+            f"{REUSE_RTOL} {share:.5f} (tolerance {REUSE_SHARE})")
+        check(not any(os.path.exists(v) for v in videos) and k3_reuse.dtype == np.float64
+              and np.median(rel) <= REUSE_MEDIAN and rel.max() <= REUSE_MAX
+              and share >= REUSE_SHARE,
+              "the reuse path's kpts_3d agrees with the streamed")
+
+        # 6. The refine CLI on a 128-frame cut, card against CPU.
+        cut = os.path.join(tmp, "cut")
+        os.makedirs(cut)
+        np.save(os.path.join(cut, "kpts_3d.npy"), k3[:REFINE_CUT])
+        np.save(os.path.join(cut, "heatmaps_2d.npy"), hm[:REFINE_CUT])
+
+        def card_vs_cpu(tag: str, extra: list) -> tuple:
+            out = {}
+            for label, d in (("card", str(dev)), ("cpu", "cpu")):
+                save = os.path.join(cut, tag + label)
+                os.makedirs(save)
+                secs, lines = run_refine_cli([
+                    "--run_path", cut, "--save_path", save,
+                    "--refinement_types", "linear_interpolation", "SGD",
+                    "--kpts_3d", os.path.join(cut, "kpts_3d.npy"),
+                    "--heatmaps_2d", os.path.join(cut, "heatmaps_2d.npy"),
+                    "--extrinsic_params_dir", os.path.join(tmp, "extrinsic_camera_parameters"),
+                    "--intrinsic_params_dir", os.path.join(tmp, "intrinsic_camera_parameters"),
+                    "--ignore_body_lengths", "--device", d, *extra])
+                out[label] = [np.load(os.path.join(save, f)) for f in
+                              ("kpts_3d_linear_interpolation.npy", "kpts_3d_SGD.npy")]
+                for line in lines:
+                    if line.startswith(("auto-gate", "saving SGD")):
+                        log(f"  refine {tag}--device {d} ({secs:.2f} s): {line}")
+            li_same = np.array_equal(out["card"][0], out["cpu"][0], equal_nan=True)
+            mpjpe = float(np.linalg.norm(out["card"][1] - out["cpu"][1], axis=-1).mean())
+            moved = float(np.linalg.norm(out["cpu"][1] - k3[:REFINE_CUT], axis=-1).mean())
+            log(f"  refine {tag}card vs CPU: interpolation equal {li_same}; SGD MPJPE "
+                f"{mpjpe:.4g} (tolerance {SGD_MPJPE_TOL}; SGD moved the trajectory {moved:.4g})")
+            check(li_same and np.isfinite(out["card"][1]).all() and mpjpe <= SGD_MPJPE_TOL,
+                  f"the refine CLI ({tag or 'defaults'}) on the card agrees with the CPU")
+            return out, mpjpe, moved
+
+        out, mpjpe, moved = card_vs_cpu("", [])
+        res.update(refine_mpjpe=mpjpe, refine_moved=moved)
+        if importlib.util.find_spec("yaml") is None:
+            log("  PyYAML absent: no YAML passed and no recording log written")
+            return res
+        import yaml
+
+        params = os.path.join(cut, "params.yaml")
+        with open(params, "w") as f:
+            yaml.safe_dump({"SGD": {"auto_gate": False, "max_iter": 300}}, f)
+        _, mpjpe, moved = card_vs_cpu("gate-off-", ["--refinement_params_yaml", params])
+        res.update(refine_gate_off_mpjpe=mpjpe, refine_gate_off_moved=moved)
+        write_recording_log(cut, videos, "coco_hrnet_w32", "full_frame")
+        save = os.path.join(cut, "from_log")
+        os.makedirs(save)
+        run_refine_cli(["--run_path", cut, "--save_path", save, "--device", str(dev)])
+        backfilled = np.load(os.path.join(save, "kpts_3d_linear_interpolation.npy"))
+        check(np.array_equal(backfilled, out["card"][0], equal_nan=True),
+              "the recording-log backfill gives the same interpolation")
+        log("  PyYAML present: SGD with the gate off and the recording-log backfill ran")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1531,8 +1855,10 @@ def main() -> int:
     for select in ("top1", "consistent"):
         check_small_detector_pipeline(gen, dev, select)
     check_simcc_replay(gen, dev)
+    # 19. The artifact chain: project files, checkpoint, streamed blocks, reuse, refine CLI.
+    artifact = run_artifact_chain(dev, fps)
 
-    # 19. Results.
+    # 20. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -1559,6 +1885,9 @@ def main() -> int:
         row["launches_phases_15_17"] = {
             path: sum(r["launches"][c] for c in ROW_COUNTERS[row["name"]])
             for path, r in paths.items()}
+        row["launches_phase_19"] = {
+            f"block_{bs}": sum(n[c] for c in ROW_COUNTERS[row["name"]])
+            for bs, n in artifact["launches"].items()}
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]
@@ -1575,6 +1904,7 @@ def main() -> int:
                       "yolox_consistent_frames_per_s": paths["yolox_s_consistent"]["fps"],
                       "simcc_frames_per_s": paths["rtmpose_t"]["fps"],
                       "simcc_joint_share": paths["rtmpose_t"]["joint_share"],
+                      "artifact_chain": {k: v for k, v in artifact.items() if k != "launches"},
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,20 +4,23 @@ package's ``models/registry.py``.
 The names and configurations are the JAX registry's: the HRNet and Swin
 heatmap families and the RTMPose SimCC family (`MODEL_REGISTRY`), and the
 person detectors (`DETECTOR_REGISTRY`: the full-frame detector, CenterNet,
-YOLOX and RTMDet).  Weights come from a flax variables tree (numpy arrays,
-through `models.convert`) or are drawn from a seed (the ``init_*_``
-functions below); MMDet/MMPose ``.pth`` checkpoints are not read.
+YOLOX and RTMDet).  Weights come from the JAX package's ``.npz``
+checkpoints (``checkpoint=``), from a flax variables tree (numpy arrays,
+through `models.convert`), or are drawn from a seed (the ``init_*_``
+functions below); MMDet/MMPose ``.pth`` checkpoints are not read yet.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any
 
 import torch
 
-from .convert import (load_centernet_from_flax, load_hrnet_from_flax, load_rtmdet_from_flax,
-                      load_rtmpose_from_flax, load_swin_from_flax, load_yolox_from_flax)
+from .convert import (load_centernet_from_flax, load_checkpoint_npz, load_hrnet_from_flax,
+                      load_rtmdet_from_flax, load_rtmpose_from_flax, load_swin_from_flax,
+                      load_yolox_from_flax)
 from .detector import CenterNetDetector, SinglePersonDetector
 from .hrnet import HRNET_W32, HRNET_W48, HRNet
 from .rtmdet import RTMDet
@@ -27,7 +30,7 @@ from .topdown import TopDownEstimator
 from .yolox import YOLOX
 
 __all__ = ["MODEL_REGISTRY", "DETECTOR_REGISTRY", "resolve_model_name", "build_estimator",
-           "build_model", "build_detector", "init_hrnet_", "init_swin_",
+           "build_model", "build_detector", "load_checkpoint", "init_hrnet_", "init_swin_",
            "init_rtmpose_", "init_centernet_", "init_rtmdet_", "init_yolox_"]
 
 # name -> (family, cfg, decode, input_size (w, h))
@@ -224,38 +227,67 @@ def init_centernet_(model: CenterNetDetector, generator: torch.Generator) -> Cen
     return model
 
 
+_MODEL_FAMILIES = {
+    "hrnet": (HRNet, init_hrnet_, load_hrnet_from_flax),
+    "swin": (SwinPose, init_swin_, load_swin_from_flax),
+    "rtmpose": (RTMPose, init_rtmpose_, load_rtmpose_from_flax),
+}
+
+
 def build_model(family: str, cfg, device="cuda", variables=None, seed: int = 0,
-                input_size=(192, 256)):
-    """A 17-joint bf16 HRNet, SwinPose (Swin: every block through the block
-    kernels) or RTMPose (at ``input_size`` (w, h)) on ``device``, with
-    weights from ``variables`` (a flax variables tree of numpy arrays) or
-    drawn from seed ``seed``."""
-    gen = torch.Generator().manual_seed(seed)
-    if family == "hrnet":
-        model = HRNet(cfg=cfg, device=device)
-        return init_hrnet_(model, gen) if variables is None else load_hrnet_from_flax(
-            model, variables)
-    if family == "swin":
-        model = SwinPose(cfg=cfg, device=device)
-        return init_swin_(model, gen) if variables is None else load_swin_from_flax(
-            model, variables)
-    if family == "rtmpose":
-        model = RTMPose(input_size=input_size, cfg=cfg, device=device)
-        return init_rtmpose_(model, gen) if variables is None else load_rtmpose_from_flax(
-            model, variables)
-    raise ValueError(f"unknown family {family!r}")
+                input_size=(192, 256), num_joints: int = 17, checkpoint: str | None = None):
+    """A ``num_joints``-joint bf16 HRNet, SwinPose (Swin: every block
+    through the block kernels) or RTMPose (at ``input_size`` (w, h)) on
+    ``device``, with weights from ``checkpoint`` (`load_checkpoint`), from
+    ``variables`` (a flax variables tree of numpy arrays) or drawn from seed
+    ``seed``."""
+    if family not in _MODEL_FAMILIES:
+        raise ValueError(f"unknown family {family!r}")
+    cls, init, load = _MODEL_FAMILIES[family]
+    sized = {"input_size": input_size} if family == "rtmpose" else {}
+    model = cls(num_joints, cfg=cfg, device=device, **sized)
+    if checkpoint:
+        return load_checkpoint(model, checkpoint, family)
+    if variables is not None:
+        return load(model, variables)
+    return init(model, torch.Generator().manual_seed(seed))
 
 
-def build_estimator(name: str = "coco_hrnet_w32", device="cuda", variables=None,
-                    seed: int = 0) -> TopDownEstimator:
+def load_checkpoint(model: torch.nn.Module, path: str, family: str) -> torch.nn.Module:
+    """Load a checkpoint into ``model``: the JAX package's ``.npz`` format
+    (`models.convert.load_checkpoint_npz`).  MMPose/MMDet ``.pth`` files
+    and orbax directories raise ``NotImplementedError``."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if path.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"{path}: torch (.pth/.pt) checkpoints are not read by the port yet "
+            f"(ROADMAP Queue A item 10); convert it to the JAX package's .npz format")
+    if path.endswith(".npz"):
+        return load_checkpoint_npz(model, path, family)
+    raise NotImplementedError(f"{path}: only the JAX package's .npz checkpoints are read by "
+                              f"the port (orbax and msgpack are not)")
+
+
+def build_estimator(name: str = "coco_hrnet_w32", checkpoint: str | None = None,
+                    num_joints: int = 17, seed: int = 0, device="cuda", variables=None,
+                    **estimator_kwargs) -> TopDownEstimator:
     """A ready `TopDownEstimator` by registry name, on ``device``.
-    ``variables``: a flax variables tree of numpy arrays for the model; None
-    draws random weights from ``torch.Generator`` seed ``seed``."""
+
+    - ``checkpoint``: the JAX package's ``.npz`` checkpoint of the model
+      (`load_checkpoint`); ``variables``: a flax variables tree of numpy
+      arrays; with neither, random weights from ``torch.Generator`` seed
+      ``seed``.
+    - ``estimator_kwargs`` pass to `TopDownEstimator` (e.g.
+      ``use_fused_stage1=True``, ``use_fused_decode=True``,
+      ``flip_test=True``); the kernels are off unless asked for, as in the
+      JAX package.
+    """
     spec = MODEL_REGISTRY[resolve_model_name(name)]
     model = build_model(spec["family"], spec["cfg"], device, variables, seed,
-                        spec["input_size"])
+                        spec["input_size"], num_joints, checkpoint)
     return TopDownEstimator(model, input_size=spec["input_size"], decode=spec["decode"],
-                            device=device)
+                            device=device, **estimator_kwargs)
 
 
 # name -> (family, cfg): the JAX registry's detector names.
@@ -287,14 +319,16 @@ _DETECTOR_FAMILIES = {
 }
 
 
-def build_detector(name: str = "full_frame", device="cuda", variables=None, seed: int = 0,
-                   bbox_thr: float = 0.3, select: str = "top1", topk: int = 4,
-                   select_window: int = 9, select_lam: float = 4.0) -> SinglePersonDetector:
+def build_detector(name: str = "full_frame", checkpoint: str | None = None,
+                   bbox_thr: float = 0.3, seed: int = 0, select: str = "top1",
+                   device="cuda", variables=None, topk: int = 4, select_window: int = 9,
+                   select_lam: float = 4.0) -> SinglePersonDetector:
     """A ready `SinglePersonDetector` by registry name, on ``device``, bf16.
-    ``"full_frame"`` has no model; the others take their weights from
-    ``variables`` (a flax variables tree of numpy arrays) or draw them from
-    ``torch.Generator`` seed ``seed``.  The selection options: as
-    `SinglePersonDetector`."""
+    ``"full_frame"`` has no model (``checkpoint`` is ignored, as in the JAX
+    package); the others take their weights from ``checkpoint`` (the JAX
+    package's ``.npz``, `load_checkpoint`), from ``variables`` (a flax
+    variables tree of numpy arrays) or draw them from ``torch.Generator``
+    seed ``seed``.  The selection options: as `SinglePersonDetector`."""
     if name not in DETECTOR_REGISTRY:
         raise KeyError(f"unknown detector '{name}'; available: {sorted(DETECTOR_REGISTRY)}")
     spec = DETECTOR_REGISTRY[name]
@@ -302,8 +336,12 @@ def build_detector(name: str = "full_frame", device="cuda", variables=None, seed
     if spec["family"] != "full_frame":
         cls, init, load = _DETECTOR_FAMILIES[spec["family"]]
         model = cls(**spec["cfg"], device=device)
-        gen = torch.Generator().manual_seed(seed)
-        model = init(model, gen) if variables is None else load(model, variables)
+        if checkpoint:
+            model = load_checkpoint(model, checkpoint, spec["family"])
+        elif variables is not None:
+            model = load(model, variables)
+        else:
+            model = init(model, torch.Generator().manual_seed(seed))
     return SinglePersonDetector(model, bbox_thr=bbox_thr, select=select, topk=topk,
                                 select_window=select_window, select_lam=select_lam,
                                 device=device)

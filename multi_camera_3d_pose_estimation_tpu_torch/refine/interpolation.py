@@ -10,6 +10,8 @@ degree-1 fit its closed form.
   fallback applies.
 - Fewer than 2 surviving points: the original point is kept, or 0 with
   ``strict_zero_fallback`` (the reference's behaviour).
+- The window sums add the window's entries in index order (`_window_sum`),
+  so the card and the CPU round alike and give the same bits.
 """
 
 from __future__ import annotations
@@ -17,6 +19,15 @@ from __future__ import annotations
 import torch
 
 __all__ = ["linear_interpolation"]
+
+
+def _window_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the window axis (1) of (T, W, N), entry 0 first: a fixed
+    order of roundings (a reduction kernel's order differs by device)."""
+    out = x[:, 0]
+    for j in range(1, x.shape[1]):
+        out = out + x[:, j]
+    return out
 
 
 def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -45,8 +56,8 @@ def _interp_core(x: torch.Tensor, k: int, k_std: float, median_std: float,
     mask_f = mask.to(x.dtype)
 
     n = mask_f.sum(1)
-    mean = (win * mask_f).sum(1) / n
-    std = torch.sqrt((mask_f * (win - mean[:, None]) ** 2).sum(1) / n)
+    mean = _window_sum(win * mask_f) / n
+    std = torch.sqrt(_window_sum(mask_f * (win - mean[:, None]) ** 2) / n)
 
     mask_b = mask.expand(win.shape)
     med = _masked_median(win, mask_b)
@@ -59,15 +70,15 @@ def _interp_core(x: torch.Tensor, k: int, k_std: float, median_std: float,
     nv = vf.sum(1)
     enough = nv >= 2
     safe_nv = torch.where(enough, nv, torch.full_like(nv, 2.0))
-    mean_v = (win * vf).sum(1) / safe_nv
+    mean_v = _window_sum(win * vf) / safe_nv
 
     if use_rolling_average:
         fitted = mean_v
     else:
         times = t_idx.to(x.dtype)[..., None]  # (T, W, 1)
-        mean_t = (times * vf).sum(1) / safe_nv
-        st2 = (vf * (times - mean_t[:, None]) ** 2).sum(1)
-        stx = (vf * (times - mean_t[:, None]) * (win - mean_v[:, None])).sum(1)
+        mean_t = _window_sum(times * vf) / safe_nv
+        st2 = _window_sum(vf * (times - mean_t[:, None]) ** 2)
+        stx = _window_sum(vf * (times - mean_t[:, None]) * (win - mean_v[:, None]))
         slope = stx / torch.where(st2 > 0, st2, torch.ones_like(st2))
         t_now = torch.arange(T, dtype=x.dtype, device=x.device)[:, None]
         fitted = mean_v + slope * (t_now - mean_t)

@@ -185,9 +185,10 @@ def _leaf_keys(params: dict) -> list:
     return [k for k in sorted(params) for _ in range(2 * len(params[k]) if k == "nn" else 1)]
 
 
-def mlp_init(draws, in_dim: int, dtype=torch.float32, device="cpu") -> list:
+def mlp_init(draws, in_dim: int, dtype, device) -> list:
     """He-uniform init of the 18 → 256 → 128 → 64 → 32 → 16 → 3 MLP (input
-    C·6): W (in, out) and b (out,) uniform in ±sqrt(1/in)."""
+    C·6): W (in, out) and b (out,) uniform in ±sqrt(1/in), drawn from
+    ``draws`` and moved to ``device`` as ``dtype``."""
     dims = (in_dim,) + MLP_WIDTHS
     layers = []
     for i in range(len(dims) - 1):

@@ -519,3 +519,115 @@ def test_full_width_detectors_draw_usable_boxes(card):
     for name in ("rtmdet_m", "yolox_s", "centernet_w32"):
         boxes = build_detector(name, device=card, bbox_thr=0.0).detect(frames.to(card))
         assert torch.isfinite(boxes).all() and ((boxes[:, 2:] - boxes[:, :2]) > 0).all(), name
+
+
+def test_stage_blocks_match_host_blocks(card):
+    """`io.stage_blocks` through its pinned ring (depth 2: 3 buffers, so
+    every buffer is refilled) over 7 blocks, the last zero-padded: each
+    staged block equals its host block bit for bit, and the results of
+    `cli.run_pipeline_on_blocks` on them equal `pipeline.run` on the host
+    blocks in memory."""
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch.cli import run_pipeline_on_blocks
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.io import stage_blocks
+
+    rng = np.random.default_rng(3)
+    shape = (4, 2, 96, 80, 3)
+    host = [(rng.integers(0, 256, shape, dtype=np.uint8), 4) for _ in range(6)]
+    tail = np.zeros(shape, np.uint8)
+    tail[:3] = rng.integers(0, 256, (3,) + shape[1:], dtype=np.uint8)
+    host.append((tail, 3))
+    events = []
+    staged = [(b.cpu().numpy(), n) for b, n in stage_blocks(iter(host), card, copy_events=events)]
+    assert len(events) == len(host) and all(e.query() for _, e in events)
+    for (h, n), (s, m) in zip(host, staged):
+        assert n == m and np.array_equal(h, s)
+    cfg, size = TINY_HRNET
+    pipe = build_pipeline(cfg, size, shape, device=card, seed=3)
+    streamed = run_pipeline_on_blocks(pipe, stage_blocks(iter(host), card), progress=False)
+    ref = [{k: v.cpu().numpy()[:n] for k, v in pipe.run(torch.as_tensor(h).to(card)).items()}
+           for h, n in host]
+    for key, out in zip(("kpts_2d", "heatmaps_2d", "kpts_3d"), streamed):
+        want = np.concatenate([r[key] for r in ref])
+        assert out.shape == want.shape and out.shape[0] == 27
+        np.testing.assert_array_equal(out, want)
+
+
+def test_npz_checkpoint_on_the_card(card, tmp_path):
+    """The JAX-format `.npz` written from a CPU model loads into the card's
+    model with the same weights, and the card's writer gives the same file."""
+    from multi_camera_3d_pose_estimation_tpu_torch.models import convert, registry
+
+    for name, family in (("test_tiny", "hrnet"), ("test_swin_128", "swin")):
+        cpu = registry.build_estimator(name, device="cpu", seed=4).model
+        path = str(tmp_path / f"{name}.npz")
+        convert.save_checkpoint_npz(cpu, path, family)
+        on_card = registry.build_estimator(name, checkpoint=path, device=card).model
+        a, b = cpu.state_dict(), on_card.state_dict()
+        assert all(b[k].is_cuda and torch.equal(a[k], b[k].cpu()) for k in a)
+        again = str(tmp_path / f"{name}_card.npz")
+        convert.save_checkpoint_npz(on_card, again, family)
+        with open(path, "rb") as f, open(again, "rb") as g:
+            assert f.read() == g.read()
+
+
+def test_refine_cli_matches_cpu(card, tmp_path):
+    """The refine CLI with --device cuda against --device cpu (float32) on a
+    17-joint, 3-camera scene: the interpolation equal, the SGD trajectory
+    within 1 unit (mm) MPJPE."""
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch import io as pio
+    from multi_camera_3d_pose_estimation_tpu_torch.cli import refine
+
+    gauss, init, cams = _refine_scene(J=17)
+    for c, (K, R, Tv, dist) in cams.items():
+        pio.save_camera_intrinsics(K, dist, f"cam{c}", root_path=str(tmp_path))
+        pio.save_extrinsic_calibration_parameters(R, Tv, f"cam{c}", root_dir=str(tmp_path))
+    pio.save_camera_names({c: f"cam{c}" for c in cams}, "cam0", str(tmp_path))
+    np.save(tmp_path / "kpts_3d.npy", init.astype(np.float32))
+    np.save(tmp_path / "heatmaps_2d.npy", gauss.astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+        refine.main(["--run_path", str(tmp_path), "--save_path", str(tmp_path / dev),
+                     "--refinement_types", "linear_interpolation", "SGD",
+                     "--kpts_3d", str(tmp_path / "kpts_3d.npy"),
+                     "--heatmaps_2d", str(tmp_path / "heatmaps_2d.npy"),
+                     "--extrinsic_params_dir", str(tmp_path / "extrinsic_camera_parameters"),
+                     "--intrinsic_params_dir", str(tmp_path / "intrinsic_camera_parameters"),
+                     "--ignore_body_lengths", "--device", dev])
+        out[dev] = [np.load(tmp_path / dev / f) for f in
+                    ("kpts_3d_linear_interpolation.npy", "kpts_3d_SGD.npy")]
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    assert np.linalg.norm(out["cuda"][1] - out["cpu"][1], axis=-1).mean() < 1.0
+
+
+def test_stage_blocks_stops_and_raises(card):
+    """`io.stage_blocks`' producer thread: a consumer that stops after two
+    blocks ends it (no thread left behind), and an exception raised by the
+    host blocks reaches the consumer."""
+    import threading
+
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch.io import stage_blocks
+
+    block = np.arange(2 * 3 * 4 * 3, dtype=np.uint8).reshape(1, 2, 3, 4, 3)
+    before = threading.active_count()
+    gen = stage_blocks(((block + i, 1) for i in range(100)), card)
+    got = [next(gen)[0].cpu().numpy() for _ in range(2)]
+    gen.close()
+    assert threading.active_count() == before
+    assert np.array_equal(got[0], block) and np.array_equal(got[1], block + 1)
+
+    def broken():
+        yield block, 1
+        raise OSError("decode failed")
+
+    staged = stage_blocks(broken(), card)
+    assert np.array_equal(next(staged)[0].cpu().numpy(), block)
+    with pytest.raises(OSError, match="decode failed"):
+        next(staged)

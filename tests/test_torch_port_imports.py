@@ -1,7 +1,10 @@
 """The port imports neither JAX nor the JAX package.
 
 Every module of the port is imported in a fresh interpreter in which
-``import jax`` and ``import multi_camera_3d_pose_estimation_tpu`` fail.
+``import jax`` and ``import multi_camera_3d_pose_estimation_tpu`` fail; and
+again, with ``chip_smoke.py``, where ``cv2``, ``yaml`` and ``tqdm`` fail too
+(the card's machine may have none of them: the port imports them only
+where a video, a YAML file or a progress bar is used).
 """
 
 import os
@@ -44,3 +47,18 @@ def test_chip_smoke_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_port_and_chip_smoke_import_without_optional_modules():
+    code = CODE.replace('sys.modules["jax"] = None',
+                        'sys.modules["jax"] = None\n'
+                        'for m in ("cv2", "yaml", "tqdm"): sys.modules[m] = None')
+    code += ("import importlib.util as u\n"
+             "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+             "m = u.module_from_spec(s); s.loader.exec_module(m)\n"
+             "assert all(sys.modules[k] is None for k in ('cv2', 'yaml', 'tqdm'))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 45  # every module, the io and cli ones too
