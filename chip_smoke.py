@@ -111,8 +111,24 @@ Phases (each synchronises the card; any failure exits non-zero):
    path through `cli.estimate_pose_from_video` (no video read) against
    the streamed kpts_3d; the refine CLI (interpolation + SGD) on a
    128-frame cut, ``--device cuda`` against ``--device cpu``;
-20. one JSON line with every kernel (with its launches on phases 15-17 and
-   19), the script's wall time, the card's line, and the final
+20. training at full width, the train CLI's step (`cli.train.build_trainer`):
+   HRNet-W32 in bf16 with clip 1.0 -> AdamW, on batches of 192x256 crops
+   that `make_crop_batch` cuts on the card (flips on) from host images of
+   512x512 made from a seed (the card's machine has no cv2); at batch 32
+   and 128 on one fixed batch each, 3 warm-up and 20 timed steps (steps/s
+   and images/s on the host clock, ended by fetching every step's loss),
+   the device time of 2 profiled steps over the timed step (the busy
+   share), the peak memory, and no kernel launched while training; the
+   loss falling over batch 32's 30 steps; test_tiny card against CPU at
+   batch 8 (TF32 off; three losses each in float32 and float64); the
+   trained weights saved with `save_checkpoint_npz`, built back with
+   ``build_estimator(checkpoint=)`` and both kernels on, one headline block
+   (4 Bottleneck and 1 decode launch) equal bit for bit to the weights in
+   memory, both kernels against their plain versions on that block's
+   inputs; then Swin-B (plain attention) and RTMPose-t, 5 timed steps each
+   at batch 32;
+21. one JSON line with every kernel (with its launches on phases 15-17, 19
+   and 20), the script's wall time, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
@@ -122,6 +138,7 @@ package beside it, it prints no result and exits 1.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1654,6 +1671,325 @@ def run_artifact_chain(dev, phase3_fps: float) -> dict:
     return res
 
 
+# Phase 20: training at full width (the train CLI's default configuration).
+TRAIN_BATCHES = (32, 128)  # the CLI's default batch, and four times it
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PROFILED = 3, 20, 2
+TRAIN_FALL_STEPS = 30  # batch 32's steps, one fixed batch: the last 5 losses below the first 5
+TRAIN_OTHER_STEPS = 5  # Swin-B and RTMPose-t, after 2 warm-up steps
+TRAIN_SRC = 512  # the source images' size (the CLI's --image_size default)
+TRAIN_LOSS_RTOL = 1e-4  # card against CPU, test_tiny: float64, and float32's first step
+# float32's three steps: the first, then the limits of tests/test_torch_train_cli.py at the
+# same batch of 8 (rounding decides the direction of many of Adam's first steps, see there)
+TRAIN_F32_RTOL = (TRAIN_LOSS_RTOL, 1e-2, 3e-2)
+TRAIN_CHECK_BATCH = 8
+
+
+def train_images(n: int, seed: int):
+    """``n`` host images (n, 512, 512, 3) uint8 from a seed, each with a box
+    and 17 visible keypoints inside it (the card's machine has no cv2, so no
+    image files)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n, TRAIN_SRC, TRAIN_SRC, 3), dtype=np.uint8)
+    x0 = rng.uniform(0, 200, (n, 2))
+    size = rng.uniform(150, 300, (n, 2))
+    boxes = np.concatenate([x0, np.minimum(x0 + size, TRAIN_SRC)], -1).astype(np.float32)
+    kps = (x0[:, None] + rng.uniform(0.05, 0.95, (n, 17, 2)) * (boxes[:, None, 2:] - x0[:, None]))
+    return images, boxes, kps.astype(np.float32), np.full((n, 17), 2.0, np.float32)
+
+
+def train_batches(trainer, B: int, n_batches: int, seed: int, dev):
+    """``n_batches`` batches of ``B`` through `make_crop_batch` on the card
+    (flips drawn from ``torch.Generator(seed)``, as the CLI's batcher); and
+    the host ms per batch (the H2D copy of the uint8 images included)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.training import make_crop_batch
+
+    images, boxes, kps, vis = train_images(B * n_batches, seed)
+    flips = torch.Generator().manual_seed(seed)
+    out, ms = [], []
+    for i in range(n_batches):
+        s = slice(i * B, (i + 1) * B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(make_crop_batch(images[s], boxes[s], kps[s], vis[s],
+                                   input_size=trainer.spec["input_size"], target=trainer.target,
+                                   flip_generator=flips, device=dev))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, sum(ms[1:]) / max(len(ms) - 1, 1) if len(ms) > 1 else ms[0]
+
+
+def train_steps(trainer, state, batches, n: int):
+    """``n`` steps with every kernel count set to 0 just before: (state, the
+    losses (host), seconds on the host clock ended by the fetch of every
+    step's loss, every counter's launches)."""
+    import torch
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, loss = trainer.step_fn(state, batches[i % len(batches)])
+        losses.append(loss)
+    host = torch.stack(losses).float().cpu()
+    dt = time.perf_counter() - t0
+    return state, host.tolist(), dt, {k: fn.launches for k, fn in counters.items()}
+
+
+def check_train_card_vs_cpu(dev) -> dict:
+    """test_tiny (batch 8, the same weights and batch) card against CPU, with
+    TF32 off: float32 (the three losses within TRAIN_F32_RTOL) and float64
+    (all three within TRAIN_LOSS_RTOL)."""
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.cli.train import build_trainer
+    from multi_camera_3d_pose_estimation_tpu_torch.training import make_crop_batch
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        images, boxes, kps, vis = train_images(TRAIN_CHECK_BATCH, 7)
+        batch = make_crop_batch(images, boxes, kps, vis, input_size=(32, 64),
+                                flip_mask=torch.arange(TRAIN_CHECK_BATCH) % 2 == 0, device="cpu")
+        res = {}
+        for dtype in ("float32", "float64"):
+            losses = {}
+            for d in (dev, "cpu"):
+                tr = build_trainer("test_tiny", dtype, 5e-4, seed=0, device=d)
+                tr.model.to(getattr(torch, dtype))
+                b = {k: v.to(d, getattr(torch, dtype)) for k, v in batch.items()}
+                st = tr.init_fn()
+                out = []
+                for _ in range(3):
+                    st, loss = tr.step_fn(st, b)
+                    out.append(loss.item())
+                losses[str(d)] = np.array(out)
+            a, c = losses[str(dev)], losses["cpu"]
+            rel = np.abs(a - c) / np.abs(c)
+            log(f"  test_tiny {dtype} card vs CPU, 3 steps: losses card {a.tolist()}, CPU "
+                f"{c.tolist()}, relative gaps {rel.tolist()}")
+            limit = TRAIN_LOSS_RTOL if dtype == "float64" else np.array(TRAIN_F32_RTOL)
+            check(bool(np.all(rel <= limit)),
+                  f"test_tiny {dtype} training on the card agrees with the CPU")
+            res[dtype] = rel.tolist()
+        return res
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def check_bottleneck_blocks(est, block, dev, label: str = ""):
+    """Each stage-1 Bottleneck block through the kernel against its plain
+    version, on the inputs that ``est`` (the stage-1 and decode kernels on)
+    gives the chain for ``block`` (T, C, H, W, 3) uint8 on the card.
+    Returns (the stem output x (T·C, h, w, 64) NHWC, each block's input on
+    the plain path and the chain's plain output, the heatmaps with the
+    kernels on, each block's max |kernel - plain|)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import preprocess_crops
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+
+    T_, C_, H_, W_ = block.shape[:4]
+    model, blocks = est.model, est.fused_stage1.blocks
+    frames = block.reshape(T_ * C_, H_, W_, 3).to(torch.bfloat16) / 255.0
+    boxes = torch.tensor([0.0, 0.0, W_, H_], device=dev).expand(T_ * C_, 4)
+    errs = []
+    with torch.inference_mode():
+        crops, _, _ = preprocess_crops(frames, boxes, est.input_size)
+        stem = model.ConvBN_1(model.ConvBN_0(crops.permute(0, 3, 1, 2)))
+        x = stem.permute(0, 2, 3, 1).contiguous()  # (512, 64, 48, 64) NHWC bf16
+        heat = model(crops.permute(0, 3, 1, 2), fused_stage1=est.fused_stage1)
+        torch.cuda.synchronize()
+
+        xs = [x]  # each block's input on the plain path
+        for p in blocks:
+            xs.append(bn.bottleneck_block_plain(xs[-1], p))
+        for i, p in enumerate(blocks):
+            kb = bn.fused_bottleneck_block(xs[i], p)
+            torch.cuda.synchronize()
+            berr = (kb.float() - xs[i + 1].float()).abs().max().item()
+            bscale = xs[i + 1].float().abs().max().item()
+            share = bf16_steps_apart(kb, xs[i + 1])
+            log(f"{label}block {i} {tuple(xs[i].shape)}: max |kernel - plain| {berr:.6g} "
+                f"(tolerance {BLOCK_REL_TOL} x {bscale:.4g}), share > 1 bf16 step {share:.3g} "
+                f"(tolerance {BLOCK_FLIP_SHARE})")
+            check(berr <= BLOCK_REL_TOL * bscale and share <= BLOCK_FLIP_SHARE,
+                  f"{label}Bottleneck block {i}: the kernel agrees with its plain version")
+            errs.append(berr)
+    return x, xs, heat, errs
+
+
+def check_decode(est, heat, label: str = ""):
+    """The decode kernel against its plain version on ``heat`` (the maps
+    the pipeline decodes).  Returns (the maps flattened (N, h·w), the
+    kernel's raw (N, 12) result, the max error of what the decode returns:
+    moments and xy in heatmap px, score)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
+
+    with torch.inference_mode():
+        flat = heat.reshape(-1, heat.shape[-2] * heat.shape[-1]).contiguous()
+        hw = heat.shape[-1]
+        kd = fd.heatmap_decode_raw(flat, hw, est.heatmap_threshold)
+        pd = fd.heatmap_decode_raw_plain(flat, hw, est.heatmap_threshold)
+        torch.cuda.synchronize()
+        derr = ((kd - pd).abs() / (pd.abs() + 1)).max().item()
+        dec_err = max((a - b).abs().max().item() for a, b in
+                      zip(fd.finish_decode(kd, hw), fd.finish_decode(pd, hw)))
+        argmax_same = torch.equal(kd[:, 7], pd[:, 7]) and torch.equal(kd[:, 6], pd[:, 6])
+    log(f"{label}decode {tuple(flat.shape)}: raw sums max |kernel - plain| / (|plain| + 1) "
+        f"{derr:.3g} (tolerance {DECODE_TOL}); peak and argmax identical: {argmax_same}; "
+        f"decoded moments/xy/score max |kernel - plain| {dec_err:.3g}")
+    check(derr <= DECODE_TOL and argmax_same,
+          f"the {label}decode kernel agrees with its plain version")
+    return flat, kd, dec_err
+
+
+def top_device_ops(prof, k: int = 8) -> list:
+    """The ``k`` device ops (kernels, copies) of a profiler window with the
+    most time: [(name cut to 70 characters, ms, count)], summed over the
+    window."""
+    import torch
+
+    tot = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = tot.get(e.name, (0.0, 0))
+            tot[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    top = sorted(tot.items(), key=lambda kv: -kv[1][0])[:k]
+    return [(name[:70], round(ms, 3), n) for name, (ms, n) in top]
+
+
+def run_training_phase(dev, block) -> dict:
+    """Phase 20: the train CLI's step (`cli.train.build_trainer`) at full
+    width on batches from `make_crop_batch`, then the trained weights
+    deployed through their ``.npz`` checkpoint on the headline ``block``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.cli.train import build_trainer
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import synthetic_rig
+    from multi_camera_3d_pose_estimation_tpu_torch.models.convert import save_checkpoint_npz
+    from multi_camera_3d_pose_estimation_tpu_torch.models.registry import build_estimator
+    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import TopDownEstimator
+    from multi_camera_3d_pose_estimation_tpu_torch.parallel.pipeline import ShardedPosePipeline
+
+    res = {"launches": {}}
+    t0 = time.perf_counter()
+    trainer = build_trainer("coco_hrnet_w32", "bfloat16", 5e-4, seed=0, device=dev)
+    state = trainer.init_fn()
+    log(f"HRNet-W32 trainer built in {time.perf_counter() - t0:.1f} s (bf16 activations, "
+        f"clip 1.0 -> AdamW lr 5e-4 wd 1e-4, flips on)")
+    for B in TRAIN_BATCHES:
+        # One fixed batch (the step's time does not depend on its data); at
+        # batch 32 all TRAIN_FALL_STEPS steps' losses are kept.
+        batches, batch_ms = train_batches(trainer, B, 1, seed=B, dev=dev)
+        torch.cuda.reset_peak_memory_stats()
+        state, seen, _, _ = train_steps(trainer, state, batches, TRAIN_WARMUP)
+        state, losses, dt, launches = train_steps(trainer, state, batches, TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            state, profiled, _, _ = train_steps(trainer, state, batches, TRAIN_PROFILED)
+        wall = time.perf_counter() - w0
+        busy = device_busy_ms(prof)
+        n_ops = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / TRAIN_PROFILED
+        sps = TRAIN_STEPS / dt
+        step_ms = dt / TRAIN_STEPS * 1e3
+        device_ms = busy / TRAIN_PROFILED
+        r = {"steps_per_s": sps, "images_per_s": sps * B, "step_ms": step_ms,
+             "device_ms_per_step": device_ms, "busy_share": device_ms / step_ms,
+             "busy_share_profiled": busy / (wall * 1e3), "peak_gib": peak,
+             "device_ops_per_step": n_ops, "make_crop_batch_ms": batch_ms,
+             "last_loss": losses[-1], "top_device_ops_per_step": top_device_ops(prof)}
+        log(f"  batch {B}: {TRAIN_STEPS} steps in {dt:.3f} s -> {sps:.3f} steps/s, "
+            f"{sps * B:.1f} images/s ({step_ms:.2f} ms per step); device {device_ms:.2f} ms "
+            f"per step ({n_ops:.0f} device ops, {TRAIN_PROFILED} profiled steps): busy share "
+            f"{r['busy_share']:.4f} of the unprofiled step ({r['busy_share_profiled']:.4f} of "
+            f"the profiled window, {wall * 1e3:.1f} ms); peak memory {peak:.2f} GiB; "
+            f"make_crop_batch {batch_ms:.2f} ms per batch (H2D of the uint8 images included); "
+            f"losses {losses[0]:.5f} .. {losses[-1]:.5f}; kernel launches {launches}")
+        for name, ms, n in r["top_device_ops_per_step"]:
+            log(f"    {ms / TRAIN_PROFILED:9.3f} ms per step in {n // TRAIN_PROFILED:5d} x {name}")
+        check(all(n == 0 for n in launches.values()), "training launches no inference kernel")
+        check(all(math.isfinite(x) for x in losses), "finite training losses")
+        res[f"b{B}"] = r
+        res["launches"][f"train_b{B}"] = launches
+        if B == TRAIN_BATCHES[0]:
+            more = TRAIN_FALL_STEPS - TRAIN_WARMUP - TRAIN_STEPS - TRAIN_PROFILED
+            state, tail, _, _ = train_steps(trainer, state, batches, more)
+            seen = seen + losses + profiled + tail
+            first, last = sum(seen[:5]) / 5, sum(seen[-5:]) / 5
+            log(f"  one fixed batch of {B}, {len(seen)} steps: mean loss of the first 5 "
+                f"{first:.6f}, of the last 5 {last:.6f}")
+            check(len(seen) == TRAIN_FALL_STEPS and last < first,
+                  "the loss falls on one fixed batch")
+            res["fixed_batch_first5"], res["fixed_batch_last5"] = first, last
+        del batches
+
+    # Card against CPU at a small size.
+    res["card_vs_cpu_rel"] = check_train_card_vs_cpu(dev)
+
+    # Deploy: the trained weights through their .npz, with both kernels on.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hrnet_w32_trained.npz")
+        save_checkpoint_npz(trainer.model, path, "hrnet")
+        kw = dict(use_fused_stage1=True, use_fused_decode=True, device=dev)
+        est = build_estimator("coco_hrnet_w32", checkpoint=path, **kw)
+    rig = synthetic_rig(C, H, W)
+    pipe = ShardedPosePipeline(est, rig, device=dev)
+    mem = ShardedPosePipeline(TopDownEstimator(trainer.model, input_size=INPUT, **kw), rig,
+                              device=dev)
+    pipe.run(block)  # warm-up
+    out, dt, launches = timed_blocks(pipe, [block], 1)
+    ref = mem.run(block)
+    torch.cuda.synchronize()
+    equal = {k: np.array_equal(out[k].cpu().numpy(), ref[k].cpu().numpy(), equal_nan=True)
+             for k in out}
+    log(f"  deployed through the .npz: one block ({T}, {C}, {H}, {W}, 3) in {dt:.3f} s, "
+        f"launches {launches}; outputs equal bit for bit to the weights in memory: {equal}")
+    check(launches["bottleneck"] == 4 and launches["heatmap_decode"] == 1,
+          "4 Bottleneck launches and 1 decode launch on the deployed block")
+    check(all(equal.values()), "the deployed checkpoint gives the in-memory weights' outputs")
+    check_outputs(out, pipe, T)
+    _, _, heat, errs = check_bottleneck_blocks(est, block, dev, "deployed ")
+    _, _, dec_err = check_decode(est, heat, "deployed ")
+    res["deploy"] = {"bottleneck_max_abs_err": max(errs), "decode_max_abs_err": dec_err}
+    res["launches"]["deploy_block"] = launches
+    del trainer, state, pipe, mem, est
+    torch.cuda.empty_cache()
+
+    # The other families at batch 32.
+    for name in ("coco_swin-b", "coco_rtmpose-t"):
+        tr = build_trainer(name, "bfloat16", 5e-4, seed=0, device=dev)
+        st = tr.init_fn()
+        batches, _ = train_batches(tr, 32, 2, seed=5, dev=dev)
+        torch.cuda.reset_peak_memory_stats()
+        st, _, _, _ = train_steps(tr, st, batches, 2)
+        st, losses, dt, launches = train_steps(tr, st, batches, TRAIN_OTHER_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sps = TRAIN_OTHER_STEPS / dt
+        log(f"  {name} ({tr.target}, batch 32): {TRAIN_OTHER_STEPS} steps in {dt:.3f} s -> "
+            f"{sps * 32:.1f} images/s ({dt / TRAIN_OTHER_STEPS * 1e3:.2f} ms per step), peak "
+            f"{peak:.2f} GiB, losses {losses[0]:.5f} .. {losses[-1]:.5f}, launches {launches}")
+        check(all(n == 0 for n in launches.values()) and all(math.isfinite(x) for x in losses),
+              f"{name} trains without the inference kernels, finite losses")
+        res[name] = {"images_per_s": sps * 32, "step_ms": dt / TRAIN_OTHER_STEPS * 1e3,
+                     "peak_gib": peak}
+        res["launches"][f"train_{name}"] = launches
+        del tr, st, batches
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1669,7 +2005,6 @@ def main() -> int:
     from multi_camera_3d_pose_estimation_tpu_torch import _native
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
     from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
-    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import preprocess_crops
     from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
 
@@ -1719,30 +2054,11 @@ def main() -> int:
 
     # 4. Each kernel against its plain version, on the main path's inputs.
     est = pipe.estimator
-    model, blocks = est.model, est.fused_stage1.blocks
-    frames = blocks_u8[0].reshape(T * C, H, W, 3).to(torch.bfloat16) / 255.0
-    boxes = torch.tensor([0.0, 0.0, W, H], device=dev).expand(T * C, 4)
+    blocks = est.fused_stage1.blocks
+    x, xs, heat, _ = check_bottleneck_blocks(est, blocks_u8[0], dev)
+    flat, kd, dec_err = check_decode(est, heat)
+    hw = heat.shape[-1]
     with torch.inference_mode():
-        crops, _, _ = preprocess_crops(frames, boxes, INPUT)
-        stem = model.ConvBN_1(model.ConvBN_0(crops.permute(0, 3, 1, 2)))
-        x = stem.permute(0, 2, 3, 1).contiguous()  # (512, 64, 48, 64) NHWC bf16
-        heat = model(crops.permute(0, 3, 1, 2), fused_stage1=est.fused_stage1)
-        torch.cuda.synchronize()
-
-        xs = [x]  # each block's input on the plain path
-        for p in blocks:
-            xs.append(bn.bottleneck_block_plain(xs[-1], p))
-        for i, p in enumerate(blocks):
-            kb = bn.fused_bottleneck_block(xs[i], p)
-            torch.cuda.synchronize()
-            berr = (kb.float() - xs[i + 1].float()).abs().max().item()
-            bscale = xs[i + 1].float().abs().max().item()
-            share = bf16_steps_apart(kb, xs[i + 1])
-            log(f"block {i} {tuple(xs[i].shape)}: max |kernel - plain| {berr:.6g} (tolerance "
-                f"{BLOCK_REL_TOL} x {bscale:.4g}), share > 1 bf16 step {share:.3g} "
-                f"(tolerance {BLOCK_FLIP_SHARE})")
-            check(berr <= BLOCK_REL_TOL * bscale and share <= BLOCK_FLIP_SHARE,
-                  f"Bottleneck block {i}: the kernel agrees with its plain version")
         kern = bn.fused_stage1_chain(x, blocks)
         plain = xs[-1]
         lib = chain_library(x, blocks).permute(0, 2, 3, 1)
@@ -1784,20 +2100,6 @@ def main() -> int:
                 f"cuDNN {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
             one[what] = r
 
-        flat = heat.reshape(-1, heat.shape[-2] * heat.shape[-1]).contiguous()
-        hw = heat.shape[-1]
-        kd = fd.heatmap_decode_raw(flat, hw, est.heatmap_threshold)
-        pd = fd.heatmap_decode_raw_plain(flat, hw, est.heatmap_threshold)
-        torch.cuda.synchronize()
-        derr = ((kd - pd).abs() / (pd.abs() + 1)).max().item()
-        # Error of what the decode returns: moments and xy in heatmap px, score.
-        dec_err = max((a - b).abs().max().item() for a, b in
-                      zip(fd.finish_decode(kd, hw), fd.finish_decode(pd, hw)))
-        argmax_same = torch.equal(kd[:, 7], pd[:, 7]) and torch.equal(kd[:, 6], pd[:, 6])
-        log(f"decode {tuple(flat.shape)}: raw sums max |kernel - plain| / (|plain| + 1) "
-            f"{derr:.3g} (tolerance {DECODE_TOL}); peak and argmax identical: {argmax_same}; "
-            f"decoded moments/xy/score max |kernel - plain| {dec_err:.3g}")
-        check(derr <= DECODE_TOL and argmax_same, "the decode kernel agrees with its plain version")
         dec = {"ms": cuda_ms(lambda: fd.heatmap_decode_raw(flat, hw, est.heatmap_threshold), 50),
                "plain_ms": cuda_ms(lambda: fd.heatmap_decode_raw_plain(flat, hw,
                                                                        est.heatmap_threshold), 20)}
@@ -1857,8 +2159,13 @@ def main() -> int:
     check_simcc_replay(gen, dev)
     # 19. The artifact chain: project files, checkpoint, streamed blocks, reuse, refine CLI.
     artifact = run_artifact_chain(dev, fps)
+    # 20. Training at full width, and the trained weights deployed.
+    t20 = time.perf_counter()
+    log(f"phases 1-19 took {t20 - wall0:.1f} s")
+    training = run_training_phase(dev, blocks_u8[0])
+    log(f"phase 20 took {time.perf_counter() - t20:.1f} s")
 
-    # 20. Results.
+    # 21. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -1888,6 +2195,9 @@ def main() -> int:
         row["launches_phase_19"] = {
             f"block_{bs}": sum(n[c] for c in ROW_COUNTERS[row["name"]])
             for bs, n in artifact["launches"].items()}
+        row["launches_phase_20"] = {
+            what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
+            for what, n in training["launches"].items()}
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]
@@ -1905,6 +2215,7 @@ def main() -> int:
                       "simcc_frames_per_s": paths["rtmpose_t"]["fps"],
                       "simcc_joint_share": paths["rtmpose_t"]["joint_share"],
                       "artifact_chain": {k: v for k, v in artifact.items() if k != "launches"},
+                      "training": {k: v for k, v in training.items() if k != "launches"},
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,11 @@
 Commands:
   refine                linear interpolation / SGD refinement CLI
                         (``--device cuda`` by default, ``--device cpu``)
+  train                 train a 2D model on COCO-format keypoints
+                        (``--device cuda`` by default, ``--device cpu``)
 
-The JAX package's other commands (record_and_estimate, plot, train,
-convert, doctor) are not ported yet: they print so and exit with code 2.
+The JAX package's other commands (record_and_estimate, plot, convert,
+doctor) are not ported yet: they print so and exit with code 2.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from __future__ import annotations
 import importlib
 import sys
 
-_COMMANDS = {"refine": "multi_camera_3d_pose_estimation_tpu_torch.cli.refine"}
-_NOT_PORTED = ("record_and_estimate", "plot", "train", "convert", "doctor")
+_COMMANDS = {"refine": "multi_camera_3d_pose_estimation_tpu_torch.cli.refine",
+             "train": "multi_camera_3d_pose_estimation_tpu_torch.cli.train"}
+_NOT_PORTED = ("record_and_estimate", "plot", "convert", "doctor")
 
 
 def main(argv=None):

@@ -6,6 +6,10 @@ a plain C interface, loaded with ``ctypes``.  Libraries go to the package's
 source so an edited kernel is rebuilt.  Nothing is built on import: a kernel
 is built at its first launch, or all at once, in parallel, by `build_all`.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
+
+A kernel called through ``ctypes`` is invisible to autograd: its output
+would carry no ``grad_fn`` and the gradient upstream of it would be lost
+without a word.  So every kernel wrapper first calls `refuse_autograd`.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "check"]
+import torch
+
+__all__ = ["SOURCES", "build_all", "library", "check", "refuse_autograd"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -90,3 +96,15 @@ def check(rc: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise ``RuntimeError`` naming ``kernel`` when autograd is on and an
+    input requires grad: the kernels have no backward.  Checked on every
+    device, before the dispatch (the CPU runs the kernel's plain version in
+    its place)."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{kernel}: the kernel has no backward, and an input requires "
+                           f"grad; call it under torch.no_grad() or torch.inference_mode(), "
+                           f"or train through the plain path")

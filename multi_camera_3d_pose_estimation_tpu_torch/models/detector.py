@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..ops.geometry import project_points
 from ..ops.triangulation import triangulate_top2
-from .rtmpose import batch_norm
+from .batchnorm import BatchNorm, batch_norm
 
 __all__ = ["full_frame_bboxes", "CenterNetDetector", "SinglePersonDetector", "decode_top1",
            "decode_topk", "select_consistent_boxes", "clip_boxes", "nanmedian_dim1", "same_pads"]
@@ -51,7 +51,7 @@ class _ConvBNReLU(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1, dtype=torch.bfloat16):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, cout, 3, stride, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(cout)
         self.stride, self.dtype = stride, dtype
 
     def forward(self, x):
@@ -80,7 +80,7 @@ class CenterNetDetector(nn.Module):
         self.Conv_0 = nn.Conv2d(4 * w, 1, 1)  # centre
         self.Conv_1 = nn.Conv2d(4 * w, 2, 1)  # wh
         self.Conv_2 = nn.Conv2d(4 * w, 2, 1)  # offset
-        self.to(device=device, memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last).eval()
 
     def _head(self, x, conv):
         return F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype)).float()

@@ -1,8 +1,9 @@
 """HRNet top-down heatmap pose model (torch, NCHW in channels_last).
 
 Counterpart of the JAX package's ``models/hrnet.py``: same architecture,
-same numerics (convs in the compute dtype, inference BatchNorm applied in
-f32 and cast back, the head's output cast to f32), and submodules named
+same numerics (convs in the compute dtype, BatchNorm applied in f32 and
+cast back (`models.batchnorm`: running statistics, or the batch's in train
+mode), the head's output cast to f32), and submodules named
 after the flax auto-names (``ConvBN_0``, ``Bottleneck_2``, ``HRModule_1``,
 ``FuseLayer_0``, ``head``, ...) so a flax variables tree maps onto the
 ``state_dict`` mechanically (`models.convert`).  Parameters are f32; the
@@ -17,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .batchnorm import BatchNorm, batch_norm
+
 __all__ = ["HRNet", "HRNET_W32", "HRNET_W48", "ConvBN", "Bottleneck", "BasicBlock",
            "FuseLayer", "HRModule"]
 
@@ -26,23 +29,20 @@ HRNET_W48 = {"widths": (48, 96, 192, 384), "modules": (1, 1, 4, 3), "stem": 64}
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias, symmetric k//2 padding) -> inference BatchNorm -> ReLU?"""
+    """Conv (no bias, symmetric k//2 padding) -> BatchNorm -> ReLU?"""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  act: bool = True, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride, padding=kernel // 2, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(cout)
         self.act = act
         self.dtype = dtype
 
     def forward(self, x):
         y = F.conv2d(x, self.Conv_0.weight.to(self.dtype), None, self.Conv_0.stride,
                      self.Conv_0.padding)
-        bn = self.BatchNorm_0
-        mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-        y = ((y.float() - bn.running_mean[:, None, None]) * mul[:, None, None]
-             + bn.bias[:, None, None]).to(self.dtype)
+        y = batch_norm(y, self.BatchNorm_0, self.dtype)
         return torch.relu(y) if self.act else y
 
 
@@ -150,8 +150,9 @@ class HRNet(nn.Module):
 
     ``forward(x)``: x (B, 3, H, W) normalized float, any memory format ->
     heatmaps (B, num_joints, H/4, W/4) f32.  ``fused_stage1``: an optional
-    ``fn(x) -> x`` that replaces the stage-1 Bottleneck chain at inference
-    (`ops.bottleneck.make_fused_stage1`).
+    ``fn(x) -> x`` that replaces the stage-1 Bottleneck chain in eval mode
+    (`ops.bottleneck.make_fused_stage1`); in train mode the four Bottleneck
+    modules run, as in the JAX package.  Built in eval mode.
     """
 
     def __init__(self, num_joints: int = 17, cfg=None, dtype=torch.bfloat16,
@@ -183,7 +184,7 @@ class HRNet(nn.Module):
                 m += 1
             self.stage_modules.append(names)
         self.head = nn.Conv2d(widths[0], num_joints, 1)
-        self.to(device=device, memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last).eval()
 
     def forward(self, x, fused_stage1=None):
         H, W = x.shape[-2:]
@@ -191,7 +192,7 @@ class HRNet(nn.Module):
             raise ValueError(f"HRNet input height/width must be divisible by 32; got {(H, W)}")
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = self.ConvBN_1(self.ConvBN_0(x))
-        if fused_stage1 is not None:
+        if fused_stage1 is not None and not self.training:
             x = fused_stage1(x)
         else:
             for i in range(4):

@@ -24,7 +24,8 @@ from .convert import (load_centernet_from_flax, load_checkpoint_npz, load_hrnet_
 from .detector import CenterNetDetector, SinglePersonDetector
 from .hrnet import HRNET_W32, HRNET_W48, HRNet
 from .rtmdet import RTMDet
-from .rtmpose import RTMPOSE_M, RTMPOSE_S, RTMPOSE_T, RTMPose, calibrating_batch_norm
+from .batchnorm import calibrating_batch_norm
+from .rtmpose import RTMPOSE_M, RTMPOSE_S, RTMPOSE_T, RTMPose
 from .swin import SWIN_B, SWIN_L, SwinPose
 from .topdown import TopDownEstimator
 from .yolox import YOLOX
@@ -235,17 +236,20 @@ _MODEL_FAMILIES = {
 
 
 def build_model(family: str, cfg, device="cuda", variables=None, seed: int = 0,
-                input_size=(192, 256), num_joints: int = 17, checkpoint: str | None = None):
-    """A ``num_joints``-joint bf16 HRNet, SwinPose (Swin: every block
-    through the block kernels) or RTMPose (at ``input_size`` (w, h)) on
-    ``device``, with weights from ``checkpoint`` (`load_checkpoint`), from
-    ``variables`` (a flax variables tree of numpy arrays) or drawn from seed
-    ``seed``."""
+                input_size=(192, 256), num_joints: int = 17, checkpoint: str | None = None,
+                dtype=torch.bfloat16, swin_attention="block"):
+    """A ``num_joints``-joint HRNet, SwinPose (its attention path
+    ``swin_attention``: "block", every block through the block kernels, or
+    False, the plain path training takes) or RTMPose (at ``input_size``
+    (w, h)) computing in ``dtype``, on ``device``, with weights from
+    ``checkpoint`` (`load_checkpoint`), from ``variables`` (a flax variables
+    tree of numpy arrays) or drawn from seed ``seed``."""
     if family not in _MODEL_FAMILIES:
         raise ValueError(f"unknown family {family!r}")
     cls, init, load = _MODEL_FAMILIES[family]
-    sized = {"input_size": input_size} if family == "rtmpose" else {}
-    model = cls(num_joints, cfg=cfg, device=device, **sized)
+    extra = ({"input_size": input_size} if family == "rtmpose"
+             else {"use_pallas_attention": swin_attention} if family == "swin" else {})
+    model = cls(num_joints, cfg=cfg, dtype=dtype, device=device, **extra)
     if checkpoint:
         return load_checkpoint(model, checkpoint, family)
     if variables is not None:

@@ -24,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .rtmpose import CSPNeXt, ConvModule, CSPLayer, batch_norm, cspnext_width
+from .batchnorm import BatchNorm, batch_norm
+from .rtmpose import CSPNeXt, ConvModule, CSPLayer, cspnext_width
 
 __all__ = ["RTMDet", "CSPNeXtDet", "CSPNeXtPAFPN", "RTMDetSepBNHead", "RTMDET_M",
            "RTMDET_TINY", "upsample2", "prior_grid"]
@@ -106,7 +107,7 @@ class RTMDetSepBNHead(nn.Module):
         for lvl in range(len(STRIDES)):
             for i in range(stacked_convs):
                 for br in ("cls", "reg"):
-                    self.add_module(f"{br}_bn_{lvl}_{i}", nn.BatchNorm2d(features, eps=1e-5))
+                    self.add_module(f"{br}_bn_{lvl}_{i}", BatchNorm(features))
             self.add_module(f"rtm_cls_{lvl}", nn.Conv2d(features, num_classes, 1))
             self.add_module(f"rtm_reg_{lvl}", nn.Conv2d(features, 4, 1))
 
@@ -140,7 +141,7 @@ class RTMDet(nn.Module):
         self.backbone = CSPNeXtDet(widen, deepen, dtype)
         self.neck = CSPNeXtPAFPN(widen, num_csp_blocks, neck_out, dtype)
         self.head = RTMDetSepBNHead(neck_out, num_classes, dtype=dtype)
-        self.to(device=device, memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last).eval()
 
     def forward(self, x) -> dict:
         feats = self.neck(self.backbone(x.contiguous(memory_format=torch.channels_last)))

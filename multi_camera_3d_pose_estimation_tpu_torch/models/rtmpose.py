@@ -8,8 +8,8 @@ The RTMDet and YOLOX detectors (`models.rtmdet`, `models.yolox`) are built
 from the same blocks.
 
 Numerics follow the flax modules: convs and Dense layers in the compute
-dtype ``dtype`` (bf16 by default) on f32 parameters, inference BatchNorm
-applied in f32 and cast back, the channel attention's pooled mean and 1x1
+dtype ``dtype`` (bf16 by default) on f32 parameters, BatchNorm
+(`models.batchnorm`) applied in f32 and cast back, the channel attention's pooled mean and 1x1
 ``fc`` in f32, ScaleNorm in f32, the GAU's q·k and attention·v summed in f32.
 Submodules carry the flax names (``stem_0``, ``stage2_csp``, ``blocks_0``,
 ``conv``/``bn``, ``gau``, ...) so a flax variables tree maps onto the
@@ -18,16 +18,16 @@ Submodules carry the flax names (``stem_0``, ``stage2_csp``, ``blocks_0``,
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .batchnorm import BatchNorm, batch_norm
+
 __all__ = ["RTMPose", "CSPNeXt", "ConvModule", "DepthwiseSeparableConv", "ChannelAttention",
-           "CSPNeXtBlock", "CSPLayer", "SPPBottleneck", "ScaleNorm", "GAU", "batch_norm",
-           "calibrating_batch_norm",
+           "CSPNeXtBlock", "CSPLayer", "SPPBottleneck", "ScaleNorm", "GAU",
            "cspnext_width", "RTMPOSE_T", "RTMPOSE_S", "RTMPOSE_M"]
 
 # widen_factor / deepen_factor per RTMPose flavor
@@ -49,36 +49,6 @@ def _depth(n: int, deepen: float) -> int:
     return max(int(round(n * deepen)), 1)
 
 
-_CALIBRATING = False
-
-
-@contextlib.contextmanager
-def calibrating_batch_norm():
-    """Within it, every `batch_norm` call first sets its BatchNorm's
-    statistics from its input: mean 0 and, for every channel, the mean
-    square of the input over all channels (the scale calibration of random
-    weights, `models.registry`)."""
-    global _CALIBRATING
-    _CALIBRATING = True
-    try:
-        yield
-    finally:
-        _CALIBRATING = False
-
-
-def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype) -> torch.Tensor:
-    """Inference BatchNorm over NCHW ``y`` as flax applies it in a bf16
-    module: in f32, minus the mean, times rsqrt(var + eps)·γ, plus β, cast
-    back to ``dtype``.  Inside `calibrating_batch_norm`, it first takes its
-    statistics from this batch."""
-    if _CALIBRATING:
-        bn.running_mean.zero_()
-        bn.running_var.fill_(y.float().square().mean().item())
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    return ((y.float() - bn.running_mean[:, None, None]) * mul[:, None, None]
-            + bn.bias[:, None, None]).to(dtype)
-
-
 class ConvModule(nn.Module):
     """conv (no bias, symmetric k//2 padding) -> BatchNorm -> SiLU?"""
 
@@ -86,7 +56,7 @@ class ConvModule(nn.Module):
                  act: bool = True, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn = BatchNorm(cout)
         self.act, self.dtype = act, dtype
 
     def forward(self, x):
@@ -282,7 +252,7 @@ class RTMPose(nn.Module):
         self.gau = GAU(cfg["embed"], dtype=dtype)
         self.cls_x = nn.Linear(cfg["embed"], int(input_size[0] * simcc_split_ratio), bias=False)
         self.cls_y = nn.Linear(cfg["embed"], int(input_size[1] * simcc_split_ratio), bias=False)
-        self.to(device=device, memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last).eval()
 
     def forward(self, x):
         dt = self.dtype

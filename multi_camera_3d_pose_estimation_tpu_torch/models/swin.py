@@ -15,8 +15,8 @@ Parameters are f32; the compute dtype is ``dtype`` (bf16 by default):
   applied;
 - PatchMerging concatenates each 2×2 neighbourhood channel-major
   (index c·4 + dy·2 + dx);
-- `Deconv` is ``conv_transpose2d`` (k4 s2 p1); the head BatchNorm computes
-  in f32 and casts to ``dtype``.
+- `Deconv` is ``conv_transpose2d`` (k4 s2 p1); the head BatchNorm
+  (`models.batchnorm`) computes in f32 and casts to ``dtype``.
 
 ``use_pallas_attention`` picks the attention path with the JAX values:
 ``"block"`` (default) runs every SwinBlock as `ops.swin_block.fused_swin_block`
@@ -58,6 +58,7 @@ from ..ops.swin_geometry import (device_table, fixed_partition, fixed_reverse, p
                                  shift_mask, shift_regions, window_roll_perm)
 from ..ops.window_attention import (fused_window_attention, packed_window_attention,
                                     window_attention_plain)
+from .batchnorm import BatchNorm, batch_norm
 
 __all__ = ["SwinPose", "SwinTransformer", "SwinBlock", "WindowAttention", "PatchMerging",
            "Deconv", "SWIN_B", "SWIN_L", "SWIN_T", "ATTENTION_MODES"]
@@ -296,20 +297,17 @@ class SwinPose(nn.Module):
         ch = cfg["embed"] * 2 ** (len(cfg["depths"]) - 1)
         for d, out in enumerate(cfg["deconv"]):
             self.add_module(f"deconv_{d}", Deconv(ch, out))
-            self.add_module(f"deconv_bn_{d}", nn.BatchNorm2d(out, eps=1e-5))
+            self.add_module(f"deconv_bn_{d}", BatchNorm(out))
             ch = out
         self.final_layer = nn.Conv2d(ch, num_joints, 1)
-        self.to(device=device)
+        self.to(device=device).eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = self.backbone(x).permute(0, 3, 1, 2)  # NCHW view of NHWC tokens
         for d in range(len(self.cfg["deconv"])):
             y = getattr(self, f"deconv_{d}")(y, dt)
-            bn = getattr(self, f"deconv_bn_{d}")
-            mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-            y = torch.relu(((y.float() - bn.running_mean[:, None, None]) * mul[:, None, None]
-                            + bn.bias[:, None, None]).to(dt))
+            y = torch.relu(batch_norm(y, getattr(self, f"deconv_bn_{d}"), dt))
         head = self.final_layer
         heat = F.conv2d(y, head.weight.to(dt)) + head.bias.to(dt)[:, None, None]
         return heat.float()

@@ -26,7 +26,6 @@ from ..ops.fused_decode import fused_heatmap_decode
 from ..ops.heatmap_decode import heatmap_argmax_decode, heatmap_dark_decode
 from ..ops.moments import heatmap_moments
 from ..ops.simcc import simcc_decode
-from ..training.augment import flip_permutation
 from .rtmpose import RTMPose
 from .swin import SwinPose
 
@@ -152,6 +151,8 @@ class TopDownEstimator:
         self.decode_mode = decode_mode
         self.flip_perm = None  # the joint permutation when flip-TTA is on
         if flip_test:
+            from ..training.augment import flip_permutation
+
             perm = flip_permutation(connectivity_type)
             n_joints = getattr(model, "num_joints", None)
             if n_joints is not None and n_joints != len(perm):

@@ -182,7 +182,7 @@ class YOLOX(nn.Module):
         self.backbone = CSPDarknet(widen, deepen, dtype)
         self.neck = YOLOXPAFPN(widen, deepen, dtype)
         self.head = YOLOXHead(widen, num_classes, dtype=dtype)
-        self.to(device=device, memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last).eval()
 
     def forward(self, x) -> dict:
         level_outs = self.head(self.neck(self.backbone(x)))

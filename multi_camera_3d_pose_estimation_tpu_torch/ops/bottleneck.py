@@ -159,8 +159,10 @@ def fused_bottleneck_block(x: torch.Tensor, p: dict) -> torch.Tensor:
     """One folded Bottleneck, x (B, H, W, cin) -> (B, H, W, cout).
 
     ``p``: `prepare_block` output.  A CUDA tensor launches the kernel (or
-    raises); a CPU tensor runs `bottleneck_block_plain`.
+    raises); a CPU tensor runs `bottleneck_block_plain`.  Refuses autograd
+    (`_native.refuse_autograd`).
     """
+    _native.refuse_autograd("bottleneck kernel (fused_bottleneck_block)", x, *p.values())
     if x.device.type == "cuda":
         return _launch(x, p)
     if x.device.type != "cpu":

@@ -73,8 +73,9 @@ def heatmap_decode_raw(flat: torch.Tensor, W: int, threshold: float = 0.01) -> t
     """(N, 12) raw decode of maps ``flat`` (N, H·W) f32 with rows of width ``W``.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-    `heatmap_decode_raw_plain`.
+    `heatmap_decode_raw_plain`.  Refuses autograd (`_native.refuse_autograd`).
     """
+    _native.refuse_autograd("heatmap decode kernel (heatmap_decode_raw)", flat)
     if flat.device.type == "cuda":
         return _launch(flat, W, threshold)
     if flat.device.type != "cpu":

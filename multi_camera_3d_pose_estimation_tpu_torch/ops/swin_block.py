@@ -167,9 +167,11 @@ def swin_gemm(mode: str, a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               res=None, ln=None, valid=None) -> torch.Tensor:
     """One token product (M, K) @ W (N, K)ᵀ -> (M, N) with its prologue and
     epilogue (see `swin_gemm_plain`).  A CUDA tensor launches the kernel (or
-    raises); a CPU tensor runs `swin_gemm_plain`."""
+    raises); a CPU tensor runs `swin_gemm_plain`.  Refuses autograd
+    (`_native.refuse_autograd`)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    _native.refuse_autograd("swin_gemm kernel", a, w, b, res, *(ln or ()), valid)
     if a.device.type == "cuda":
         return _launch_gemm(mode, a, w, b, res, ln, valid)
     if a.device.type != "cpu":

@@ -178,7 +178,8 @@ def _launch(qkv, bias, mask, heads, rows=None, P=0):
 def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask, heads: int) -> torch.Tensor:
     """Attention context (Bw, n, C) of qkv (Bw, n, 3C).  A CUDA tensor
     launches the kernel (or raises); a CPU tensor runs
-    `window_attention_plain`."""
+    `window_attention_plain`.  Refuses autograd (`_native.refuse_autograd`)."""
+    _native.refuse_autograd("window attention kernel", qkv, bias, mask)
     if qkv.device.type == "cuda":
         out = _launch(qkv, bias, mask, heads)
         window_attention.launches += 1
@@ -199,7 +200,8 @@ def window_attention_rows(qkv: torch.Tensor, bias: torch.Tensor, mask, heads: in
     crop of P); mask (nW, n, n) f32 or None.  A CUDA tensor launches the
     kernel in row mode (or raises; a table entry out of range stops the
     kernel with a device-side assert); a CPU tensor runs
-    `window_attention_rows_plain`."""
+    `window_attention_rows_plain`.  Refuses autograd (`_native.refuse_autograd`)."""
+    _native.refuse_autograd("window attention kernel (row mode)", qkv, bias, mask, rows)
     if qkv.device.type == "cuda":
         out = _launch(qkv, bias, mask, heads, rows, P)
         window_attention_rows.launches += 1

@@ -4,7 +4,8 @@ Every module of the port is imported in a fresh interpreter in which
 ``import jax`` and ``import multi_camera_3d_pose_estimation_tpu`` fail; and
 again, with ``chip_smoke.py``, where ``cv2``, ``yaml`` and ``tqdm`` fail too
 (the card's machine may have none of them: the port imports them only
-where a video, a YAML file or a progress bar is used).
+where a video, an image file, a YAML file or a progress bar is used); and
+the training modules and the train CLI by name, the same way.
 """
 
 import os
@@ -62,3 +63,30 @@ def test_port_and_chip_smoke_import_without_optional_modules():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) >= 45  # every module, the io and cli ones too
+
+
+def test_training_and_train_cli_import_without_jax_or_optional_modules():
+    """The training subsystem and the train CLI, named one by one: no JAX,
+    no cv2 (a lazy import where an image is read or drawn), yaml or tqdm."""
+    code = """
+import importlib, sys
+for m in ("jax", "multi_camera_3d_pose_estimation_tpu", "cv2", "yaml", "tqdm"):
+    sys.modules[m] = None
+port = "multi_camera_3d_pose_estimation_tpu_torch"
+names = [f"{port}.training.{m}" for m in ("targets", "losses", "augment", "loop", "data",
+                                          "synthetic", "harness")]
+names += [f"{port}.training", f"{port}.cli.train", f"{port}.models.batchnorm"]
+for name in names:
+    importlib.import_module(name)
+from multi_camera_3d_pose_estimation_tpu_torch.__main__ import _COMMANDS
+assert "train" in _COMMANDS
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == 10
