@@ -127,8 +127,25 @@ Phases (each synchronises the card; any failure exits non-zero):
    memory, both kernels against their plain versions on that block's
    inputs; then Swin-B (plain attention) and RTMPose-t, 5 timed steps each
    at batch 32;
-21. one JSON line with every kernel (with its launches on phases 15-17, 19
-   and 20), the script's wall time, the card's line, and the final
+21. weights from an MMPose ``.pth``: HRNet-W32 and Swin-B files written by
+   the port's MMPose mirrors (``randomize_``, HRNet's names under mmengine's
+   ``backbone.`` / ``keypoint_head.``), each through the convert CLI on the
+   card (``--verify --out``: the per-stage drill within 2e-3, the JAX
+   package's ``.npz`` written); HRNet-W32 built from the ``.pth`` with the
+   JAX keyword ``use_pallas_stage1`` as `cli.estimate` builds it, timed on
+   phase 3's blocks in memory, two blocks streamed through
+   `cli.run_pipeline_on_blocks` (4 Bottleneck and 1 decode launch per
+   block) bit for bit equal to the ``.npz`` route, and the stage-1 chain
+   against its plain version on the checkpoint's BatchNorm statistics;
+   Swin-B from the ``.pth``, one block of T=128 x C=2 (96 swin_gemm, 24
+   attention and 1 decode launch) bit for bit equal to the ``.npz`` route,
+   each stage's window attention against its plain version on the
+   checkpoint's bias table; `cli.estimate_pose_from_video` from the
+   ``.pth`` on 128 frames of phase 19's rig (raw frame stacks: the card's
+   machine has no cv2 to decode videos), its artifacts equal to the
+   ``.npz`` route's;
+22. one JSON line with every kernel (with its launches on phases 15-17, 19,
+   20 and 21), the script's wall time, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
@@ -1990,6 +2007,303 @@ def run_training_phase(dev, block) -> dict:
     return res
 
 
+# Phase 21: weights from an MMPose .pth (the port's MMPose mirrors write the files).
+PTH_SEED = 21  # the mirrors' randomize_ seed
+PTH_FRAMES = 128  # the estimate CLI's run: frames x C cameras, as phase 19's refine cut
+PTH_CLI_BLOCK = 64  # the estimate CLI's default block_size
+
+
+def write_pth_files(tmp: str) -> dict:
+    """HRNet-W32 and Swin-B ``.pth`` files as zoo files hold them
+    (``{"state_dict": ...}``; HRNet's names under mmengine's ``backbone.`` /
+    ``keypoint_head.``, the Swin mirror's already under its own), written
+    by the port's MMPose mirrors with ``randomize_(PTH_SEED)``."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
+    from multi_camera_3d_pose_estimation_tpu_torch.models.mirrors import hrnet as mh
+    from multi_camera_3d_pose_estimation_tpu_torch.models.mirrors import swin as ms
+    from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_B
+
+    paths = {}
+    for name, mirror, randomize_ in (("coco_hrnet_w32", mh.MMPoseHRNet(HRNET_W32), mh.randomize_),
+                                     ("coco_swin-b", ms.MMPoseSwin(SWIN_B), ms.randomize_)):
+        t0 = time.perf_counter()
+        randomize_(mirror, seed=PTH_SEED)
+        sd = mirror.state_dict()
+        if name == "coco_hrnet_w32":
+            sd = {("keypoint_head." if k.startswith("final_layer") else "backbone.") + k: v
+                  for k, v in sd.items()}
+        paths[name] = os.path.join(tmp, f"{name}.pth")
+        torch.save({"state_dict": sd}, paths[name])
+        n = sum(v.numel() for k, v in sd.items() if v.is_floating_point())
+        log(f"  {name}.pth: {n / 1e6:.2f} M float32 values, "
+            f"{os.path.getsize(paths[name]) / 1e6:.1f} MB, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def run_convert_cli(pth: str, name: str, npz: str, dev) -> dict:
+    """`cli.convert.main([pth, --model name, --verify, --out npz, --device
+    dev])`: the drill's per-stage report (printed) and the call's seconds."""
+    import contextlib
+    import io
+
+    from multi_camera_3d_pose_estimation_tpu_torch.cli import convert as convert_cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            convert_cli.main([pth, "--model", name, "--verify", "--out", npz, "--device",
+                              str(dev)])
+        except SystemExit as e:
+            code = e.code
+    secs = time.perf_counter() - t0
+    stages = {}
+    for line in buf.getvalue().splitlines():
+        log(f"    {line}")
+        tok = line.split()
+        if len(tok) >= 4 and tok[3] in ("PASS", "FAIL"):
+            stages[tok[0]] = float(tok[2])
+    check(code == 0 and "VERIFY: PASS" in buf.getvalue() and os.path.exists(npz),
+          f"convert --verify --out on {name}: every stage within 2e-3 and the .npz written")
+    log(f"  convert --verify --out {name}: {secs:.2f} s (the drill on the card, then the "
+        f"conversion and the .npz); largest per-stage rel {max(stages.values()):.3g}")
+    return {"seconds": secs, "max_rel": max(stages.values()), "stages": stages}
+
+
+class FrameStackReader:
+    """`io.frames.VideoReader`'s interface over a ``.npy`` frame stack
+    (T, H, W, 3) uint8 RGB at ``path + ".npy"``: the card's machine has no
+    cv2 to decode a video, so phase 21 stores its recordings as raw frames."""
+
+    def __init__(self, path: str, prefetch: int = 16, bgr: bool = False):
+        import numpy as np
+
+        self._frames = np.load(path + ".npy")
+        self.n_frames, self.height, self.width = self._frames.shape[:3]
+        self.bgr, self.fps, self._at = bgr, 30.0, 0
+
+    def read_block(self, n: int):
+        out = self._frames[self._at:self._at + n]
+        self._at += out.shape[0]
+        return out[..., ::-1] if self.bgr else out
+
+    def close(self):
+        self._frames = None
+
+
+def run_pth_phase(dev, blocks_u8, phase3_fps: float) -> dict:
+    """Phase 21: HRNet-W32 and Swin-B from MMPose ``.pth`` files, through the
+    convert CLI's drill, the builders' JAX keywords, the block pipeline and
+    the estimate CLI, each against the route through the ``.npz`` that
+    ``convert --out`` wrote."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.cli import estimate as est_cli
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import synthetic_rig
+    from multi_camera_3d_pose_estimation_tpu_torch.io import (
+        frames, save_camera_intrinsics, save_camera_names, save_extrinsic_calibration_parameters,
+        stage_blocks)
+    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import preprocess_crops
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
+
+    res: dict = {"launches": {}}
+    counters = kernel_counters()
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    def same(a, b):
+        return all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. The files and the project (phase 19's rig).
+        pths = write_pth_files(tmp)
+        rig = synthetic_rig(C, H, W)
+        names = [f"cam{c}" for c in range(C)]
+        for c, name in enumerate(names):
+            save_camera_intrinsics(rig["K"][c], rig["dist"][c], name, root_path=tmp)
+            save_extrinsic_calibration_parameters(rig["R"][c], rig["T"][c], name, root_dir=tmp)
+        save_camera_names(dict(enumerate(names)), names[0], tmp)
+
+        # 2. The drill and the conversion, through the convert CLI on the card.
+        npzs = {name: pth[:-4] + ".npz" for name, pth in pths.items()}
+        res["convert"] = {name: run_convert_cli(pths[name], name, npzs[name], dev)
+                          for name in pths}
+
+        # 3. HRNet-W32 from the .pth in the block pipeline, against the .npz route.
+        kw = {"use_pallas_stage1": True, "use_fused_decode": True}  # the JAX keyword for stage 1
+        pipes = {}
+        for route in ("pth", "npz"):
+            t0 = time.perf_counter()
+            ckpt = pths["coco_hrnet_w32"] if route == "pth" else npzs["coco_hrnet_w32"]
+            pipes[route] = est_cli.build_estimate_pipeline(
+                tmp, pose_estimation_model="coco_hrnet_w32", checkpoint=ckpt,
+                estimator_kwargs=kw, device=dev)
+            res[f"hrnet_build_{route}_s"] = time.perf_counter() - t0
+        pipe = pipes["pth"]
+        pipe.run(blocks_u8[0])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_BLOCKS):
+            pipe.run(blocks_u8[i % 2])
+        torch.cuda.synchronize()
+        res["hrnet_fps"] = T * N_BLOCKS / (time.perf_counter() - t0)
+        host = [(b.cpu().numpy(), T) for b in blocks_u8]
+        outs = {}
+        for route, p in pipes.items():
+            outs[route], launches = counted(lambda: est_cli.run_pipeline_on_blocks(
+                p, stage_blocks(iter(host), dev), progress=False))
+            res["launches"][f"hrnet_{route}"] = launches
+        n = len(host)
+        log(f"  HRNet-W32 from the .pth (build {res['hrnet_build_pth_s']:.2f} s, from the .npz "
+            f"{res['hrnet_build_npz_s']:.2f} s): {N_BLOCKS} blocks of ({T}, {C}, {H}, {W}, 3) in "
+            f"memory -> {res['hrnet_fps']:.1f} frames/s (phase 3, seeded weights: "
+            f"{phase3_fps:.1f}); {n} blocks streamed through run_pipeline_on_blocks, launches "
+            f"{res['launches']['hrnet_pth']}")
+        check(res["launches"]["hrnet_pth"] == dict(bottleneck=4 * n, heatmap_decode=n,
+                                                   swin_gemm=0, window_attention=0,
+                                                   window_attention_rows=0),
+              "HRNet from the .pth: 4 Bottleneck and 1 decode launch per block")
+        check(same(outs["pth"], outs["npz"]),
+              "HRNet from the .pth: the artifacts equal the .npz route's bit for bit")
+        check_outputs({k: torch.from_numpy(v) for k, v in zip(("kpts_2d", "heatmaps_2d",
+                                                                "kpts_3d"), outs["pth"])},
+                      pipe, n * T)
+        # The stage-1 chain on this block's stem output, the checkpoint's BN statistics.
+        est = pipe.estimator
+        x, xs, _, _ = check_bottleneck_blocks(est, blocks_u8[0], dev, label="the .pth's ")
+        with torch.inference_mode():
+            kern = bn.fused_stage1_chain(x, est.fused_stage1.blocks)
+            torch.cuda.synchronize()
+            err = (kern.float() - xs[-1].float()).abs().max().item()
+            scale = xs[-1].float().abs().max().item()
+        log(f"  the .pth's stage-1 chain {tuple(x.shape)}: max |kernel - plain| {err:.6g} "
+            f"(tolerance {CHAIN_REL_TOL} x {scale:.4g})")
+        check(err <= CHAIN_REL_TOL * scale,
+              "the Bottleneck chain agrees with its plain version on the .pth's weights")
+        res["chain_err"] = err
+        del pipes, pipe, est
+
+        # 4. Swin-B from the .pth: one block of bench_swin's configuration.
+        gen = torch.Generator().manual_seed(PTH_SEED)
+        sblock = torch.randint(0, 256, (SWIN_T, C, H, W, 3), generator=gen,
+                               dtype=torch.uint8).to(dev)
+        souts = {}
+        for route in ("pth", "npz"):
+            ckpt = pths["coco_swin-b"] if route == "pth" else npzs["coco_swin-b"]
+            t0 = time.perf_counter()
+            p = est_cli.build_estimate_pipeline(
+                tmp, pose_estimation_model="coco_swin-b", checkpoint=ckpt,
+                estimator_kwargs={"use_fused_decode": True}, device=dev)
+            res[f"swin_build_{route}_s"] = time.perf_counter() - t0
+            p.run(sblock)  # warm-up
+            out, launches = counted(lambda: p.run(sblock))
+            souts[route] = {k: v.cpu().numpy() for k, v in out.items()}
+            res["launches"][f"swin_{route}"] = launches
+            if route == "pth":
+                spipe = p
+        n_blocks = sum(spipe.estimator.model.cfg["depths"])
+        log(f"  Swin-B from the .pth (build {res['swin_build_pth_s']:.2f} s, from the .npz "
+            f"{res['swin_build_npz_s']:.2f} s): one block of ({SWIN_T}, {C}, {H}, {W}, 3), "
+            f"launches {res['launches']['swin_pth']}")
+        check(res["launches"]["swin_pth"] == dict(bottleneck=0, heatmap_decode=1,
+                                                  swin_gemm=4 * n_blocks,
+                                                  window_attention=n_blocks,
+                                                  window_attention_rows=0),
+              "Swin-B from the .pth: 96 swin_gemm, 24 attention and 1 decode launch per block")
+        check(same(souts["pth"].values(), souts["npz"].values()),
+              "Swin-B from the .pth: the outputs equal the .npz route's bit for bit")
+        # Each stage's first shifted block: its window attention on the checkpoint's bias table.
+        model = spipe.estimator.model
+        captured, hooks = {}, []
+
+        def capture(i):
+            def hook(module, args, kwargs):  # returns None: the call goes on unchanged
+                captured.setdefault(i, (args[0], dict(kwargs)))
+            return hook
+
+        for i in range(len(model.cfg["depths"])):
+            blk = getattr(model.backbone, f"stage_{i}_block_1")
+            hooks.append(blk.register_forward_pre_hook(capture(i), with_kwargs=True))
+        frames_ = sblock.reshape(SWIN_T * C, H, W, 3).to(torch.bfloat16) / 255.0
+        boxes = torch.tensor([0.0, 0.0, W, H], device=dev).expand(SWIN_T * C, 4)
+        errs = []
+        with torch.inference_mode():
+            model(preprocess_crops(frames_, boxes, INPUT)[0])
+            for h in hooks:
+                h.remove()
+            for i in range(len(model.cfg["depths"])):
+                blk = getattr(model.backbone, f"stage_{i}_block_1")
+                x, kw_ = captured[i]
+                p_ = blk.prepared()
+                B_, Hc, Wc = kw_["pre_part"]
+                nw = blk.window ** 2
+                valid, mask = sb.block_tables(Hc, Wc, blk.window, blk.shift, dev)
+                qkv = sb.swin_gemm("qkv", x, p_["wqkv"], p_["bqkv"], ln=p_["norm1"],
+                                   valid=valid).view(-1, nw, 3 * x.shape[-1])
+                ka = wa.window_attention(qkv, p_["bias"], mask, blk.heads)
+                pa = wa.window_attention_plain(qkv, p_["bias"], mask, blk.heads)
+                torch.cuda.synchronize()
+                aerr = (ka.float() - pa.float()).abs().max().item()
+                ascale = pa.float().abs().max().item()
+                log(f"  the .pth's Swin stage {i} attention qkv {tuple(qkv.shape)}, bias table "
+                    f"std {p_['bias'].float().std().item():.3f}: max |kernel - plain| "
+                    f"{aerr:.6g} (tolerance {ATTN_REL_TOL} x {ascale:.4g})")
+                check(aerr <= ATTN_REL_TOL * ascale, f"the .pth's Swin stage {i}: the window "
+                      "attention kernel agrees with its plain version")
+                errs.append(aerr)
+        res["attention_err"] = max(errs)
+        del spipe, model, captured
+
+        # 5. The estimate CLI from the .pth, against the .npz route.
+        rng = np.random.default_rng(PTH_SEED)
+        rec = os.path.join(tmp, "recordings")
+        os.makedirs(rec)
+        videos = [os.path.join(rec, f"{name}_synced.mp4") for name in names]
+        for v in videos:
+            np.save(v + ".npy", rng.integers(0, 256, (PTH_FRAMES, H, W, 3), dtype=np.uint8))
+        reader = frames.VideoReader
+        frames.VideoReader = FrameStackReader
+        try:
+            arts = {}
+            for route in ("pth", "npz"):
+                ckpt = pths["coco_hrnet_w32"] if route == "pth" else npzs["coco_hrnet_w32"]
+                t0 = time.perf_counter()
+                arts[route], launches = counted(lambda: est_cli.estimate_pose_from_video(
+                    videos, project_dir=tmp, pose_estimation_model="coco_hrnet_w32",
+                    checkpoint=ckpt, estimator_kwargs=kw, block_size=PTH_CLI_BLOCK,
+                    save_dir=os.path.join(tmp, route), device=dev))
+                res[f"estimate_{route}_s"] = time.perf_counter() - t0
+                res["launches"][f"estimate_{route}"] = launches
+        finally:
+            frames.VideoReader = reader
+        nb = PTH_FRAMES // PTH_CLI_BLOCK
+        on_disk = [np.load(os.path.join(tmp, "pth", f"{k}.npy"))
+                   for k in ("kpts_2d", "heatmaps_2d", "kpts_3d")]
+        log(f"  estimate_pose_from_video(checkpoint=.pth): {PTH_FRAMES} frames x {C} cameras "
+            f"(raw frame stacks: the card's machine has no cv2) in {res['estimate_pth_s']:.2f} s "
+            f"(.npz route {res['estimate_npz_s']:.2f} s), launches "
+            f"{res['launches']['estimate_pth']}; kpts_2d {on_disk[0].shape}")
+        check(res["launches"]["estimate_pth"]["bottleneck"] == 4 * nb
+              and res["launches"]["estimate_pth"]["heatmap_decode"] == nb,
+              "the estimate CLI from the .pth: 4 Bottleneck and 1 decode launch per block")
+        check(on_disk[0].shape == (PTH_FRAMES, 17, 3, C) and same(arts["pth"], on_disk)
+              and same(arts["pth"], arts["npz"]),
+              "the estimate CLI from the .pth: the artifacts equal the .npz route's bit for bit")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2164,8 +2478,13 @@ def main() -> int:
     log(f"phases 1-19 took {t20 - wall0:.1f} s")
     training = run_training_phase(dev, blocks_u8[0])
     log(f"phase 20 took {time.perf_counter() - t20:.1f} s")
+    # 21. Weights from an MMPose .pth: the drill, the builders, the pipelines, the estimate CLI.
+    t21 = time.perf_counter()
+    pth = run_pth_phase(dev, blocks_u8, fps)
+    pth["seconds"] = time.perf_counter() - t21
+    log(f"phase 21 took {pth['seconds']:.1f} s")
 
-    # 21. Results.
+    # 22. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -2198,6 +2517,9 @@ def main() -> int:
         row["launches_phase_20"] = {
             what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
             for what, n in training["launches"].items()}
+        row["launches_phase_21"] = {
+            what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
+            for what, n in pth["launches"].items()}
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]
@@ -2216,6 +2538,7 @@ def main() -> int:
                       "simcc_joint_share": paths["rtmpose_t"]["joint_share"],
                       "artifact_chain": {k: v for k, v in artifact.items() if k != "launches"},
                       "training": {k: v for k, v in training.items() if k != "launches"},
+                      "pth": {k: v for k, v in pth.items() if k != "launches"},
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

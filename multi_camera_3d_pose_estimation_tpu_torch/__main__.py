@@ -3,13 +3,16 @@
     python -m multi_camera_3d_pose_estimation_tpu_torch <command> [args...]
 
 Commands:
+  convert               load an MMPose .pth checkpoint (--out: the .npz format;
+                        --verify: the per-stage drill; ``--device cuda`` by
+                        default, ``--device cpu``)
   refine                linear interpolation / SGD refinement CLI
                         (``--device cuda`` by default, ``--device cpu``)
   train                 train a 2D model on COCO-format keypoints
                         (``--device cuda`` by default, ``--device cpu``)
 
-The JAX package's other commands (record_and_estimate, plot, convert,
-doctor) are not ported yet: they print so and exit with code 2.
+The JAX package's other commands (record_and_estimate, plot, doctor) are
+not ported yet: they print so and exit with code 2.
 """
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ from __future__ import annotations
 import importlib
 import sys
 
-_COMMANDS = {"refine": "multi_camera_3d_pose_estimation_tpu_torch.cli.refine",
+_COMMANDS = {"convert": "multi_camera_3d_pose_estimation_tpu_torch.cli.convert",
+             "refine": "multi_camera_3d_pose_estimation_tpu_torch.cli.refine",
              "train": "multi_camera_3d_pose_estimation_tpu_torch.cli.train"}
-_NOT_PORTED = ("record_and_estimate", "plot", "convert", "doctor")
+_NOT_PORTED = ("record_and_estimate", "plot", "doctor")
 
 
 def main(argv=None):

@@ -196,8 +196,9 @@ def estimate_pose_from_video(
       None loads ``camera_names.pkl`` from the extrinsic directory.
     - ``intrinsic_params_dir`` / ``extrinsic_params_dir`` override
       ``<project_dir>/{intrinsic,extrinsic}_camera_parameters``.
-    - ``checkpoint`` / ``detector_checkpoint``: the JAX package's ``.npz``
-      checkpoints; None draws random weights.
+    - ``checkpoint`` / ``detector_checkpoint``: MMPose/MMDet ``.pth`` files
+      (read through the strict name maps of `models.convert`) or the JAX
+      package's ``.npz`` checkpoints; None draws random weights.
     - ``estimator_kwargs``: `models.TopDownEstimator` options, e.g.
       ``{"use_fused_stage1": True, "use_fused_decode": True}`` for the
       stage-1 and decode kernels (off by default, as in the JAX package).

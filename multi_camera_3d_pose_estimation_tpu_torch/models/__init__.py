@@ -1,6 +1,8 @@
 """Models of the port: HRNet and Swin (heatmap), RTMPose (SimCC), the person
-detectors (CenterNet, RTMDet, YOLOX), the flax weight converter, the
-registry and the top-down estimator."""
+detectors (CenterNet, RTMDet, YOLOX), the weight converters (flax trees,
+the JAX package's ``.npz``, MMPose/MMDet ``.pth`` in `convert`), the
+checkpoint drill (`checkpoint_verify`) with its MMPose mirrors
+(`mirrors`), the registry and the top-down estimator."""
 
 from .convert import (centernet_state_dict_from_flax, hrnet_state_dict_from_flax,
                       load_centernet_from_flax, load_hrnet_from_flax, load_rtmdet_from_flax,

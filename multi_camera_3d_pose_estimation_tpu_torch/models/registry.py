@@ -4,10 +4,10 @@ package's ``models/registry.py``.
 The names and configurations are the JAX registry's: the HRNet and Swin
 heatmap families and the RTMPose SimCC family (`MODEL_REGISTRY`), and the
 person detectors (`DETECTOR_REGISTRY`: the full-frame detector, CenterNet,
-YOLOX and RTMDet).  Weights come from the JAX package's ``.npz``
-checkpoints (``checkpoint=``), from a flax variables tree (numpy arrays,
-through `models.convert`), or are drawn from a seed (the ``init_*_``
-functions below); MMDet/MMPose ``.pth`` checkpoints are not read yet.
+YOLOX and RTMDet).  Weights come from a checkpoint (``checkpoint=``: the
+JAX package's ``.npz``, or an MMPose/MMDet ``.pth`` through the name maps
+of `models.convert`), from a flax variables tree (numpy arrays), or are
+drawn from a seed (the ``init_*_`` functions below).
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ from typing import Any
 
 import torch
 
-from .convert import (load_centernet_from_flax, load_checkpoint_npz, load_hrnet_from_flax,
-                      load_rtmdet_from_flax, load_rtmpose_from_flax, load_swin_from_flax,
-                      load_yolox_from_flax)
+from .convert import (TORCH_LOADERS, load_centernet_from_flax, load_checkpoint_npz,
+                      load_hrnet_from_flax, load_rtmdet_from_flax, load_rtmpose_from_flax,
+                      load_swin_from_flax, load_yolox_from_flax)
 from .detector import CenterNetDetector, SinglePersonDetector
 from .hrnet import HRNET_W32, HRNET_W48, HRNet
 from .rtmdet import RTMDet
@@ -31,8 +31,8 @@ from .topdown import TopDownEstimator
 from .yolox import YOLOX
 
 __all__ = ["MODEL_REGISTRY", "DETECTOR_REGISTRY", "resolve_model_name", "build_estimator",
-           "build_model", "build_detector", "load_checkpoint", "init_hrnet_", "init_swin_",
-           "init_rtmpose_", "init_centernet_", "init_rtmdet_", "init_yolox_"]
+           "build_model", "new_model", "build_detector", "load_checkpoint", "init_hrnet_",
+           "init_swin_", "init_rtmpose_", "init_centernet_", "init_rtmdet_", "init_yolox_"]
 
 # name -> (family, cfg, decode, input_size (w, h))
 MODEL_REGISTRY: dict[str, dict[str, Any]] = {
@@ -235,61 +235,85 @@ _MODEL_FAMILIES = {
 }
 
 
-def build_model(family: str, cfg, device="cuda", variables=None, seed: int = 0,
-                input_size=(192, 256), num_joints: int = 17, checkpoint: str | None = None,
-                dtype=torch.bfloat16, swin_attention="block"):
+def new_model(family: str, cfg, device="cuda", input_size=(192, 256), num_joints: int = 17,
+              dtype=torch.bfloat16, swin_attention="block") -> torch.nn.Module:
     """A ``num_joints``-joint HRNet, SwinPose (its attention path
     ``swin_attention``: "block", every block through the block kernels, or
     False, the plain path training takes) or RTMPose (at ``input_size``
-    (w, h)) computing in ``dtype``, on ``device``, with weights from
-    ``checkpoint`` (`load_checkpoint`), from ``variables`` (a flax variables
-    tree of numpy arrays) or drawn from seed ``seed``."""
+    (w, h)) computing in ``dtype``, on ``device``, with torch's default
+    initialisation: weights to be loaded."""
     if family not in _MODEL_FAMILIES:
         raise ValueError(f"unknown family {family!r}")
-    cls, init, load = _MODEL_FAMILIES[family]
     extra = ({"input_size": input_size} if family == "rtmpose"
              else {"use_pallas_attention": swin_attention} if family == "swin" else {})
-    model = cls(num_joints, cfg=cfg, dtype=dtype, device=device, **extra)
+    return _MODEL_FAMILIES[family][0](num_joints, cfg=cfg, dtype=dtype, device=device, **extra)
+
+
+def build_model(family: str, cfg, device="cuda", variables=None, seed: int = 0,
+                input_size=(192, 256), num_joints: int = 17, checkpoint: str | None = None,
+                dtype=torch.bfloat16, swin_attention="block"):
+    """`new_model`, with weights from ``checkpoint`` (`load_checkpoint`),
+    from ``variables`` (a flax variables tree of numpy arrays) or drawn from
+    seed ``seed``."""
+    model = new_model(family, cfg, device, input_size, num_joints, dtype, swin_attention)
+    _, init, load = _MODEL_FAMILIES[family]
     if checkpoint:
-        return load_checkpoint(model, checkpoint, family)
+        return load_checkpoint(model, checkpoint, family, cfg)
     if variables is not None:
         return load(model, variables)
     return init(model, torch.Generator().manual_seed(seed))
 
 
-def load_checkpoint(model: torch.nn.Module, path: str, family: str) -> torch.nn.Module:
-    """Load a checkpoint into ``model``: the JAX package's ``.npz`` format
-    (`models.convert.load_checkpoint_npz`).  MMPose/MMDet ``.pth`` files
-    and orbax directories raise ``NotImplementedError``."""
+def load_checkpoint(model: torch.nn.Module, path: str, family: str,
+                    cfg: dict | None = None) -> torch.nn.Module:
+    """Load a checkpoint into ``model`` (of ``family``, built from ``cfg``):
+    an MMPose/MMDet ``.pth`` / ``.pt`` file through the family's strict
+    name map (`models.convert.TORCH_LOADERS`: hrnet, rtmpose, swin, yolox,
+    rtmdet; any other family raises ``ValueError``), or the JAX package's
+    ``.npz`` format (`models.convert.load_checkpoint_npz`).  Orbax
+    directories and msgpack files raise ``NotImplementedError``."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"{path}: torch (.pth/.pt) checkpoints are not read by the port yet "
-            f"(ROADMAP Queue A item 10); convert it to the JAX package's .npz format")
+        if family not in TORCH_LOADERS:
+            raise ValueError(f"torch checkpoint conversion not implemented for {family}")
+        return TORCH_LOADERS[family](model, path, cfg)
     if path.endswith(".npz"):
         return load_checkpoint_npz(model, path, family)
-    raise NotImplementedError(f"{path}: only the JAX package's .npz checkpoints are read by "
-                              f"the port (orbax and msgpack are not)")
+    raise NotImplementedError(f"{path}: the port reads torch .pth/.pt files and the JAX "
+                              f"package's .npz checkpoints (orbax and msgpack are not read)")
 
 
 def build_estimator(name: str = "coco_hrnet_w32", checkpoint: str | None = None,
                     num_joints: int = 17, seed: int = 0, device="cuda", variables=None,
+                    dtype=torch.bfloat16, use_pallas_attention=None, use_pallas_stage1=None,
                     **estimator_kwargs) -> TopDownEstimator:
-    """A ready `TopDownEstimator` by registry name, on ``device``.
+    """A ready `TopDownEstimator` by registry name, on ``device``, computing
+    in ``dtype``.
 
-    - ``checkpoint``: the JAX package's ``.npz`` checkpoint of the model
-      (`load_checkpoint`); ``variables``: a flax variables tree of numpy
-      arrays; with neither, random weights from ``torch.Generator`` seed
-      ``seed``.
+    - ``checkpoint``: an MMPose ``.pth`` or the JAX package's ``.npz``
+      checkpoint of the model (`load_checkpoint`); ``variables``: a flax
+      variables tree of numpy arrays; with neither, random weights from
+      ``torch.Generator`` seed ``seed``.
+    - ``use_pallas_attention`` (the JAX keyword; Swin only, ``ValueError``
+      for another family): the Swin attention path, `build_model`'s
+      ``swin_attention`` ("block" when None).
+    - ``use_pallas_stage1`` (the JAX keyword): `TopDownEstimator`'s
+      ``use_fused_stage1``.
     - ``estimator_kwargs`` pass to `TopDownEstimator` (e.g.
       ``use_fused_stage1=True``, ``use_fused_decode=True``,
       ``flip_test=True``); the kernels are off unless asked for, as in the
       JAX package.
     """
     spec = MODEL_REGISTRY[resolve_model_name(name)]
+    if use_pallas_attention is not None and spec["family"] != "swin":
+        raise ValueError(f"use_pallas_attention applies to the swin family only, not "
+                         f"'{name}' ({spec['family']})")
+    if use_pallas_stage1 is not None:
+        estimator_kwargs["use_fused_stage1"] = use_pallas_stage1
     model = build_model(spec["family"], spec["cfg"], device, variables, seed,
-                        spec["input_size"], num_joints, checkpoint)
+                        spec["input_size"], num_joints, checkpoint, dtype,
+                        "block" if use_pallas_attention is None else use_pallas_attention)
     return TopDownEstimator(model, input_size=spec["input_size"], decode=spec["decode"],
                             device=device, **estimator_kwargs)
 
@@ -326,22 +350,26 @@ _DETECTOR_FAMILIES = {
 def build_detector(name: str = "full_frame", checkpoint: str | None = None,
                    bbox_thr: float = 0.3, seed: int = 0, select: str = "top1",
                    device="cuda", variables=None, topk: int = 4, select_window: int = 9,
-                   select_lam: float = 4.0) -> SinglePersonDetector:
-    """A ready `SinglePersonDetector` by registry name, on ``device``, bf16.
-    ``"full_frame"`` has no model (``checkpoint`` is ignored, as in the JAX
-    package); the others take their weights from ``checkpoint`` (the JAX
-    package's ``.npz``, `load_checkpoint`), from ``variables`` (a flax
+                   select_lam: float = 4.0, dtype=torch.bfloat16,
+                   input_hw=None) -> SinglePersonDetector:
+    """A ready `SinglePersonDetector` by registry name, on ``device``,
+    computing in ``dtype``.  ``"full_frame"`` has no model (``checkpoint`` is
+    ignored, as in the JAX package); the others take their weights from
+    ``checkpoint`` (an MMDet ``.pth`` for RTMDet and YOLOX, or the JAX
+    package's ``.npz``: `load_checkpoint`), from ``variables`` (a flax
     variables tree of numpy arrays) or draw them from ``torch.Generator``
-    seed ``seed``.  The selection options: as `SinglePersonDetector`."""
+    seed ``seed``.  ``input_hw`` is accepted for the JAX signature and
+    unused: the models are fully convolutional, and there it only seeds the
+    parameter shapes.  The selection options: as `SinglePersonDetector`."""
     if name not in DETECTOR_REGISTRY:
         raise KeyError(f"unknown detector '{name}'; available: {sorted(DETECTOR_REGISTRY)}")
     spec = DETECTOR_REGISTRY[name]
     model = None
     if spec["family"] != "full_frame":
         cls, init, load = _DETECTOR_FAMILIES[spec["family"]]
-        model = cls(**spec["cfg"], device=device)
+        model = cls(**spec["cfg"], dtype=dtype, device=device)
         if checkpoint:
-            model = load_checkpoint(model, checkpoint, spec["family"])
+            model = load_checkpoint(model, checkpoint, spec["family"], spec["cfg"])
         elif variables is not None:
             model = load(model, variables)
         else:

@@ -137,10 +137,10 @@ def test_bad_checkpoints_raise(tmp_path):
                      lambda f: f.update(p3=np.zeros(f["p3"].shape[:-1] + (5,), np.float32)))
     with pytest.raises(ValueError, match="shape mismatch"):
         build(wrong)
-    for suffix in (".pth", ".pt"):
+    for suffix in (".pth", ".pt"):  # torch files go to the MMPose name map, which is strict
         torch_file = tmp_path / f"model{suffix}"
-        torch_file.write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        torch.save({"state_dict": {"aux_head.fc.weight": torch.zeros(8, 8)}}, str(torch_file))
+        with pytest.raises(ValueError, match="missing"):
             build(str(torch_file))
     orbax = tmp_path / "orbax_dir"
     orbax.mkdir()

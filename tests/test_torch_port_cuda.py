@@ -631,3 +631,34 @@ def test_stage_blocks_stops_and_raises(card):
     assert np.array_equal(next(staged)[0].cpu().numpy(), block)
     with pytest.raises(OSError, match="decode failed"):
         next(staged)
+
+
+def test_pth_checkpoint_on_the_card(card, tmp_path):
+    """A small HRNet ``.pth`` (the port's MMPose mirror, mmengine prefixes)
+    built on the card with the stage-1 and decode kernels on (the JAX
+    keyword ``use_pallas_stage1``) gives the same keypoints bit for bit as
+    the ``.npz`` that ``convert --out`` writes from it, both kernels
+    launched."""
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch.cli import convert as convert_cli
+    from multi_camera_3d_pose_estimation_tpu_torch.models import registry
+    from multi_camera_3d_pose_estimation_tpu_torch.models.mirrors.hrnet import (MMPoseHRNet,
+                                                                               randomize_)
+
+    mirror = MMPoseHRNet(registry.MODEL_REGISTRY["test_tiny"]["cfg"])
+    randomize_(mirror, seed=3)
+    pth, npz = str(tmp_path / "tiny.pth"), str(tmp_path / "tiny.npz")
+    torch.save({"state_dict": {("keypoint_head." if k.startswith("final_layer") else "backbone.")
+                               + k: v for k, v in mirror.state_dict().items()}}, pth)
+    convert_cli.main([pth, "--model", "test_tiny", "--out", npz, "--verify"])
+    frames = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (6, 96, 80, 3),
+                                                                dtype=np.uint8)).to(card)
+    out = {}
+    for ckpt in (pth, npz):
+        est = registry.build_estimator("test_tiny", checkpoint=ckpt, device=card,
+                                       use_pallas_stage1=True, use_fused_decode=True)
+        bn.fused_bottleneck_block.launches = fd.heatmap_decode_raw.launches = 0
+        out[ckpt] = {k: v.cpu() for k, v in est.predict_batch(frames).items()}
+        assert bn.fused_bottleneck_block.launches > 0 and fd.heatmap_decode_raw.launches == 1
+    assert all(torch.equal(out[pth][k], out[npz][k]) for k in out[pth])

@@ -5,7 +5,9 @@ Every module of the port is imported in a fresh interpreter in which
 again, with ``chip_smoke.py``, where ``cv2``, ``yaml`` and ``tqdm`` fail too
 (the card's machine may have none of them: the port imports them only
 where a video, an image file, a YAML file or a progress bar is used); and
-the training modules and the train CLI by name, the same way.
+the training modules and the train CLI by name, the same way; and the
+checkpoint modules (the ``.pth`` readers, the drill, the MMPose mirrors'
+copy and the convert CLI) by name.
 """
 
 import os
@@ -90,3 +92,34 @@ print(len(names))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) == 10
+
+
+def test_checkpoint_modules_and_convert_cli_import_without_jax_or_optional_modules():
+    """The ``.pth`` readers, the drill, the mirrors' copy and the convert
+    CLI, named one by one: no JAX, nothing of the JAX package (whose own
+    mirrors import only torch, and are still not imported), no cv2, yaml or
+    tqdm; ``convert`` is a command."""
+    code = """
+import importlib, sys
+for m in ("jax", "multi_camera_3d_pose_estimation_tpu", "cv2", "yaml", "tqdm"):
+    sys.modules[m] = None
+port = "multi_camera_3d_pose_estimation_tpu_torch"
+names = [f"{port}.models.{m}" for m in ("convert", "checkpoint_verify", "registry", "mirrors",
+                                        "mirrors.hrnet", "mirrors.rtmpose", "mirrors.swin")]
+names += [f"{port}.cli.convert"]
+for name in names:
+    importlib.import_module(name)
+from multi_camera_3d_pose_estimation_tpu_torch.__main__ import _COMMANDS, _NOT_PORTED
+assert "convert" in _COMMANDS and "convert" not in _NOT_PORTED
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                and sys.modules[m] is not None)
+leaked += sorted(m for m in sys.modules if m.startswith("multi_camera_3d_pose_estimation_tpu.")
+                 and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == 8
