@@ -144,8 +144,26 @@ Phases (each synchronises the card; any failure exits non-zero):
    ``.pth`` on 128 frames of phase 19's rig (raw frame stacks: the card's
    machine has no cv2 to decode videos), its artifacts equal to the
    ``.npz`` route's;
-22. one JSON line with every kernel (with its launches on phases 15-17, 19,
-   20 and 21), the script's wall time, the card's line, and the final
+22. the mesh paths (`parallel`) as a one-rank NCCL group: first the CPU
+   references in a one-rank gloo group (then destroyed), then
+   `init_distributed` on a free local port (NCCL) and the headline block
+   through ``ShardedPosePipeline(mesh=make_mesh(1))`` (4 Bottleneck and 1
+   decode launch per block, outputs equal to phase 3's ``mesh=None`` run bit
+   for bit, frames/s); BASELINE config 5 (`bench.py::bench_multiclip`: 8
+   clips x T=32 x 4 cameras of 256x256, 1024 crops per block) through
+   `run_clips_batched` on ``make_clip_mesh(1, 1)``, a warm-up and 3 timed
+   blocks (4 + 1 launches each), split equal to unsplit and to ``mesh=None``,
+   4-camera frames/s; phase 20's HRNet-W32 bf16 step at batch 32 through
+   ``make_train_step(mesh=make_mesh(1))``, 3 steps against ``mesh=None`` on
+   the same batch and weights (bit for bit), the collectives per step and the
+   step's cost against ``mesh=None`` (timed in turns); test_tiny's DP step
+   and `sharded_refine_step` (30 steps on ``tests/test_parallel.py``'s
+   scene) in float64, card against CPU (losses within 1e-9 relative,
+   test_tiny's weights within 1e-3 lr per step); the group destroyed.
+   Every collective really runs, over one rank: no multi-GPU speed is
+   claimed;
+23. one JSON line with every kernel (with its launches on phases 15-17, 19,
+   20, 21 and 22), the script's wall time, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
@@ -2304,6 +2322,325 @@ def run_pth_phase(dev, blocks_u8, phase3_fps: float) -> dict:
     return res
 
 
+# Phase 22: the mesh paths as a one-rank NCCL group (the card's machine has one card).
+MULTICLIP = (8, 32, 4)  # bench.py::bench_multiclip (BASELINE config 5): clips, T, cameras
+N_MULTICLIP_BLOCKS = 3
+MESH_TRAIN_B = 32  # phase 20's batch
+MESH_TRAIN_STEPS = 3  # compared with mesh=None
+MESH_TIMED_STEPS = 3  # per turn: none, mesh, mesh, none
+MESH_REFINE_STEPS = 30
+MESH_F64_RTOL = 1e-9  # float64, card against CPU: losses, and the refinement's parameters
+# test_tiny's weights after 3 clip -> AdamW steps: Adam moves a weight by about
+# lr whatever its gradient's size, so rounding-level gradients part by up to
+# that; held at 1e-3 lr per step (tests/test_torch_train_loop.py's limit).
+MESH_TINY_WEIGHT_ATOL = 1e-3 * 5e-4 * 3
+
+
+def refine_step_scene():
+    """``tests/test_parallel.py``'s `sharded_refine_step` scene in float64:
+    16 windows of 4 frames x 5 joints, 2 cameras."""
+    import numpy as np
+
+    N, B, C_, J = 16, 4, 2, 5
+    rng = np.random.default_rng(0)
+    params = {"traj": rng.normal(0, 1, (N, B, J, 3)) + np.array([0, 0, 300.0]),
+              "rvecs": np.full((C_, 3), 1e-4), "tvecs": np.stack([np.zeros(3), [-30.0, 0, 0]])}
+    batch = {"means": rng.uniform(20, 140, (N, B, C_, J, 2)),
+             "cov_inv": np.broadcast_to(np.eye(2) / 25.0, (N, B, C_, J, 2, 2)).copy(),
+             "Ks": np.broadcast_to([[300.0, 0, 80.0], [0, 300.0, 60.0], [0, 0, 1.0]],
+                                   (C_, 3, 3)).copy(),
+             "dists": np.zeros((C_, 5))}
+    return params, batch
+
+
+def run_refine_steps(mesh, dev):
+    """`sharded_refine_step` (smoothness on) for MESH_REFINE_STEPS steps on
+    ``dev``: (the losses, the final parameters as numpy)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.parallel import sharded_refine_step
+
+    params, batch = refine_step_scene()
+    params = {k: torch.tensor(v, device=dev) for k, v in params.items()}
+    batch = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+    step, tx = sharded_refine_step(mesh, lr=0.05, lambda_smooth=1.0)
+    state, losses = tx.init(params), []
+    for _ in range(MESH_REFINE_STEPS):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss)
+    return torch.stack(losses).cpu().numpy(), {k: v.cpu().numpy() for k, v in params.items()}
+
+
+def run_tiny_dp_steps(mesh, dev):
+    """test_tiny in float64 through `make_train_step(mesh=)` (the train CLI's
+    loss and clip -> AdamW) at batch 8, 3 steps on ``dev``: (the losses, the
+    final state dict as numpy)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.cli.train import build_trainer
+    from multi_camera_3d_pose_estimation_tpu_torch.training import make_crop_batch, make_train_step
+    from multi_camera_3d_pose_estimation_tpu_torch.training.losses import heatmap_mse_loss
+
+    images, boxes, kps, vis = train_images(TRAIN_CHECK_BATCH, 7)
+    vis[TRAIN_CHECK_BATCH // 2:, :5] = 0.0  # unequal weights between the batch's halves
+    batch = make_crop_batch(images, boxes, kps, vis, input_size=(32, 64),
+                            flip_mask=torch.arange(TRAIN_CHECK_BATCH) % 2 == 0, device="cpu")
+    batch = {k: v.to(dev, torch.float64) for k, v in batch.items()}
+    tr = build_trainer("test_tiny", "float64", 5e-4, seed=0, device=dev)
+    tr.model.to(torch.float64)
+    init_fn, step_fn = make_train_step(
+        tr.model, lambda o, b: heatmap_mse_loss(o, b["targets"], b["weights"]),
+        learning_rate=5e-4, mesh=mesh)
+    state, losses = init_fn(), []
+    for _ in range(3):
+        state, loss = step_fn(state, batch)
+        losses.append(loss)
+    return (torch.stack(losses).cpu().numpy(),
+            {k: v.cpu().numpy() for k, v in tr.model.state_dict().items()})
+
+
+class CollectiveCount:
+    """Within it, counts the calls of torch.distributed's collectives (the
+    port's mesh helpers look them up at each call)."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast", "barrier")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+
+        def counting(name, fn):
+            def call(*args, **kwargs):
+                self.counts[name] += 1
+                return fn(*args, **kwargs)
+            return call
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, counting(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+
+def same_tensors(a: dict, b: dict) -> bool:
+    """Every entry equal bit for bit, NaN where NaN."""
+    import torch
+
+    return all(torch.equal(torch.nan_to_num(a[k], 7.0), torch.nan_to_num(b[k], 7.0)) for k in a)
+
+
+def rel_gap(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float) -> dict:
+    """Phase 22: the CPU references in a one-rank gloo group, then a one-rank
+    NCCL group (`init_distributed`) through the headline block, BASELINE
+    config 5's clips, the data-parallel train step and `sharded_refine_step`."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from multi_camera_3d_pose_estimation_tpu_torch.cli.train import build_trainer
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.models.batchnorm import BatchNorm
+    from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
+    from multi_camera_3d_pose_estimation_tpu_torch.parallel import (ShardedPosePipeline,
+                                                                    init_distributed,
+                                                                    make_clip_mesh, make_mesh,
+                                                                    run_clips_batched)
+    from multi_camera_3d_pose_estimation_tpu_torch.training import make_train_step
+    from multi_camera_3d_pose_estimation_tpu_torch.training.losses import heatmap_mse_loss
+
+    res = {"launches": {}}
+    # The CPU references: one rank of gloo, the group destroyed after.
+    cpu_mesh = make_mesh(1, device="cpu")
+    refine_cpu = run_refine_steps(cpu_mesh, "cpu")
+    tiny_cpu = run_tiny_dp_steps(cpu_mesh, "cpu")
+    dist.destroy_process_group()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "a one-rank NCCL group")
+        log(f"one-rank group: backend {dist.get_backend()}, NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+        mesh = make_mesh(1)
+
+        # The headline block through the mesh, against phase 3's one-device run.
+        sharded = ShardedPosePipeline(pipe.estimator, pipe.cam_stack, mesh=mesh, device=dev)
+        sharded.run(blocks_u8[0])  # warm-up
+        torch.cuda.synchronize()
+        out, dt, launches = timed_blocks(sharded, blocks_u8, N_BLOCKS)
+        ref = pipe.run(blocks_u8[(N_BLOCKS - 1) % len(blocks_u8)])
+        equal = same_tensors(out, ref)
+        res["mesh_frames_per_s"] = T * N_BLOCKS / dt
+        log(f"  headline block on make_mesh(1): {N_BLOCKS} blocks of ({T}, {C}, {H}, {W}, 3) in "
+            f"{dt:.3f} s -> {res['mesh_frames_per_s']:.1f} frames/s (phase 3 {phase3_fps:.1f}); "
+            f"launches {launches}; equal to mesh=None bit for bit: {equal}")
+        check(launches["bottleneck"] == 4 * N_BLOCKS and launches["heatmap_decode"] == N_BLOCKS,
+              "the mesh pipeline: 4 Bottleneck launches and 1 decode launch per block")
+        check(equal, "the one-rank mesh pipeline equals mesh=None bit for bit")
+        check_outputs(out, sharded, T)
+        res["launches"]["headline"] = launches
+
+        # BASELINE config 5: 8 clips x T=32 x 4 cameras (1024 crops per block).
+        n_clips, clip_t, cams = MULTICLIP
+        mc = build_pipeline(HRNET_W32, INPUT, (n_clips * clip_t, cams, H, W, 3), device=dev,
+                            seed=0)
+        clip_mesh = make_clip_mesh(1, 1)
+        mc_mesh = ShardedPosePipeline(mc.estimator, mc.cam_stack, mesh=clip_mesh, device=dev)
+        gen = torch.Generator(dev).manual_seed(5)
+        clips = [torch.randint(0, 256, (n_clips, clip_t, cams, H, W, 3), generator=gen,
+                               device=dev, dtype=torch.uint8) for _ in range(2)]
+        run_clips_batched(mc_mesh, clips[0], split=False)  # warm-up
+        torch.cuda.synchronize()
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for i in range(N_MULTICLIP_BLOCKS):
+            stacked = run_clips_batched(mc_mesh, clips[i % 2], split=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        res["multiclip_frames_per_s"] = n_clips * clip_t * N_MULTICLIP_BLOCKS / dt
+        last = clips[(N_MULTICLIP_BLOCKS - 1) % 2]
+        split = run_clips_batched(mc_mesh, last, split=True)
+        split_equal = all(same_tensors(split[i], {k: v[i] for k, v in stacked.items()})
+                          for i in range(n_clips))
+        flat = {k: v.flatten(0, 1) for k, v in stacked.items()}
+        one = mc.run(last.flatten(0, 1))
+        log(f"  BASELINE config 5 ({n_clips} clips x T={clip_t} x {cams} cameras of {H}x{W}, "
+            f"{n_clips * clip_t * cams} crops per block) through run_clips_batched on "
+            f"make_clip_mesh(1, 1): {N_MULTICLIP_BLOCKS} blocks in {dt:.3f} s -> "
+            f"{res['multiclip_frames_per_s']:.1f} {cams}-camera frames/s; launches {launches}; "
+            f"split=True equal to split=False: {split_equal}; equal to mesh=None: "
+            f"{same_tensors(flat, one)}")
+        check(launches["bottleneck"] == 4 * N_MULTICLIP_BLOCKS
+              and launches["heatmap_decode"] == N_MULTICLIP_BLOCKS,
+              "run_clips_batched: 4 Bottleneck launches and 1 decode launch per block")
+        check(split_equal and same_tensors(flat, one),
+              "run_clips_batched: split equals unsplit, and both the one-device pipeline")
+        check_outputs(flat, mc_mesh, n_clips * clip_t, cams)
+        res["launches"]["multiclip"] = launches
+        del mc, mc_mesh, clips, stacked, split, flat, one
+        torch.cuda.empty_cache()
+
+        # The data-parallel train step at world 1 against mesh=None (phase 20's step).
+        trainers = {k: build_trainer("coco_hrnet_w32", "bfloat16", 5e-4, seed=0, device=dev)
+                    for k in ("none", "mesh")}
+        n_bn = sum(isinstance(m, BatchNorm) for m in trainers["mesh"].model.modules())
+        _, step_mesh = make_train_step(
+            trainers["mesh"].model, lambda o, b: heatmap_mse_loss(o, b["targets"], b["weights"]),
+            learning_rate=5e-4, mesh=mesh)
+        steps = {"none": trainers["none"].step_fn, "mesh": step_mesh}
+        states = {k: trainers[k].init_fn() for k in trainers}
+        batches, _ = train_batches(trainers["none"], MESH_TRAIN_B, 1, seed=MESH_TRAIN_B, dev=dev)
+        losses = {}
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        for k in ("none", "mesh"):
+            out = []
+            for _ in range(MESH_TRAIN_STEPS):
+                if k == "mesh":
+                    with CollectiveCount() as cc:
+                        states[k], loss = steps[k](states[k], batches[0])
+                else:
+                    states[k], loss = steps[k](states[k], batches[0])
+                out.append(loss)
+            losses[k] = torch.stack(out).float().cpu().numpy()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        sd = {k: trainers[k].model.state_dict() for k in trainers}
+        bitwise = (np.array_equal(losses["mesh"], losses["none"])
+                   and all(torch.equal(sd["mesh"][n], sd["none"][n]) for n in sd["none"]))
+        weight_gap = max(rel_gap(sd["mesh"][n].float().cpu(), sd["none"][n].float().cpu())
+                         for n in sd["none"] if sd["none"][n].is_floating_point())
+        loss_rel = np.abs(losses["mesh"] - losses["none"]) / np.abs(losses["none"])
+        # Timed in turns on the same batch: none, mesh, mesh, none.
+        ms = {"none": [], "mesh": []}
+        for k in ("none", "mesh", "mesh", "none"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_TIMED_STEPS):
+                states[k], loss = steps[k](states[k], batches[0])
+            loss.item()
+            ms[k].append((time.perf_counter() - t0) / MESH_TIMED_STEPS * 1e3)
+        step_ms = {k: sum(v) / len(v) for k, v in ms.items()}
+        collectives = sum(cc.counts.values())
+        # One profiled step each: device ops and busy time, and the host time
+        # inside the collectives (torch.distributed's c10d ops).
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        profiled = {}
+        for k in ("none", "mesh"):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                states[k], loss = steps[k](states[k], batches[0])
+                loss.item()
+            c10d = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name.startswith("c10d::")]
+            profiled[k] = {
+                "device_ops": sum(1 for e in prof.events()
+                                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                "device_ms": device_busy_ms(prof), "c10d_calls": len(c10d),
+                "c10d_host_ms": sum((e.time_range.end - e.time_range.start) / 1e3 for e in c10d)}
+        res["train"] = {"bitwise_equal": bitwise, "loss_rel_gap": loss_rel.tolist(),
+                        "weight_rel_gap": weight_gap, "step_ms": step_ms["mesh"],
+                        "step_ms_no_mesh": step_ms["none"],
+                        "cost": step_ms["mesh"] / step_ms["none"] - 1.0,
+                        "collectives_per_step": cc.counts, "batchnorm_layers": n_bn,
+                        "turns_ms": ms, "profiled_step": profiled}
+        log(f"  DP train step (HRNet-W32 bf16, batch {MESH_TRAIN_B}) on make_mesh(1) against "
+            f"mesh=None, {MESH_TRAIN_STEPS} steps: losses {losses['mesh'].tolist()} / "
+            f"{losses['none'].tolist()}; bit for bit (losses and every weight and statistic): "
+            f"{bitwise}, largest relative weight gap {weight_gap:.3g}; {collectives} collectives "
+            f"per step {cc.counts} over {n_bn} BatchNorm layers; {step_ms['mesh']:.2f} ms per "
+            f"step against {step_ms['none']:.2f} (turns {ms}): cost "
+            f"{res['train']['cost']:+.4f}; kernel launches {launches}; one profiled step each: "
+            f"{profiled}")
+        check(all(n == 0 for n in launches.values()), "training launches no inference kernel")
+        check(bitwise or bool(np.all(loss_rel <= np.array(TRAIN_F32_RTOL))),
+              "the DP train step at world 1 equals mesh=None (else within phase 20's limits)")
+        res["launches"]["train"] = launches
+        del trainers, steps, states, batches, sd
+        torch.cuda.empty_cache()
+
+        # Float64, card against CPU: test_tiny's DP step and sharded_refine_step.
+        tiny = run_tiny_dp_steps(mesh, dev)
+        tiny_loss = rel_gap(tiny[0], tiny_cpu[0])
+        tiny_w = max(float(np.abs(tiny[1][n] - tiny_cpu[1][n]).max()) for n in tiny_cpu[1]
+                     if np.issubdtype(tiny_cpu[1][n].dtype, np.floating))
+        refine = run_refine_steps(mesh, dev)
+        ref_loss = float(np.max(np.abs(refine[0] - refine_cpu[0]) / np.abs(refine_cpu[0])))
+        ref_p = max(rel_gap(refine[1][k], refine_cpu[1][k]) for k in refine_cpu[1])
+        res["float64"] = {"tiny_loss_rel": tiny_loss, "tiny_weight_abs": tiny_w,
+                          "refine_loss_rel": ref_loss, "refine_param_rel": ref_p,
+                          "refine_first_last": [float(refine[0][0]), float(refine[0][-1])]}
+        log(f"  float64 card against CPU: test_tiny DP step, losses {tiny_loss:.3g} relative, "
+            f"weights {tiny_w:.3g} apart (limit {MESH_TINY_WEIGHT_ATOL:.3g}); "
+            f"sharded_refine_step, {MESH_REFINE_STEPS} steps (loss {refine[0][0]:.4f} -> "
+            f"{refine[0][-1]:.4f}), losses {ref_loss:.3g}, parameters {ref_p:.3g} relative "
+            f"(limit {MESH_F64_RTOL})")
+        check(max(tiny_loss, ref_loss, ref_p) <= MESH_F64_RTOL
+              and tiny_w <= MESH_TINY_WEIGHT_ATOL and refine[0][-1] < refine[0][0],
+              "float64 DP train and refine steps on the card agree with the CPU")
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2483,8 +2820,13 @@ def main() -> int:
     pth = run_pth_phase(dev, blocks_u8, fps)
     pth["seconds"] = time.perf_counter() - t21
     log(f"phase 21 took {pth['seconds']:.1f} s")
+    # 22. The mesh paths as a one-rank NCCL group.
+    t22 = time.perf_counter()
+    mesh = run_mesh_phase(dev, pipe, blocks_u8, fps)
+    mesh["seconds"] = time.perf_counter() - t22
+    log(f"phase 22 took {mesh['seconds']:.1f} s")
 
-    # 22. Results.
+    # 23. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -2520,6 +2862,9 @@ def main() -> int:
         row["launches_phase_21"] = {
             what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
             for what, n in pth["launches"].items()}
+        row["launches_phase_22"] = {
+            what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
+            for what, n in mesh["launches"].items()}
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]
@@ -2539,6 +2884,9 @@ def main() -> int:
                       "artifact_chain": {k: v for k, v in artifact.items() if k != "launches"},
                       "training": {k: v for k, v in training.items() if k != "launches"},
                       "pth": {k: v for k, v in pth.items() if k != "launches"},
+                      "mesh_frames_per_s": mesh["mesh_frames_per_s"],
+                      "multiclip_frames_per_s": mesh["multiclip_frames_per_s"],
+                      "mesh": {k: v for k, v in mesh.items() if k != "launches"},
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

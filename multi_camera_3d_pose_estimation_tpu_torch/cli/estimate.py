@@ -6,6 +6,11 @@ defaults, file names and layouts: ``kpts_2d.npy`` (T, 17, 3, C),
 artifacts are reused (3D recomputed by triangulation alone when
 ``kpts_3d.npy`` is missing) unless ``overwrite=True``.
 
+With a mesh (`parallel.make_mesh`) every rank decodes and stages the same
+blocks, the pipeline shards each block's frames over the ranks and gathers
+the results on every rank, the mesh's first rank writes the artifacts and
+the others wait for them.
+
 On the card three things overlap: the decode thread fills host blocks
 (`io.BatchedFramePipeline`), `io.stage_blocks` copies the next block
 through pinned memory on a copy stream while the card runs the current
@@ -27,6 +32,7 @@ from ..io.frames import BatchedFramePipeline
 from ..io.manifest import load_camera_names
 from ..models.registry import build_detector, build_estimator
 from ..ops.triangulation import get_pose_3d
+from ..parallel.mesh import check_mesh, is_first_rank, mesh_barrier
 from ..parallel.pipeline import ShardedPosePipeline
 
 __all__ = ["estimate_pose_from_video", "run_pipeline_on_videos", "run_pipeline_on_blocks",
@@ -150,11 +156,12 @@ def build_estimate_pipeline(project_dir: str = "", camera_names=None,
                             estimator_kwargs: dict | None = None,
                             intrinsic_params_dir: str | None = None,
                             extrinsic_params_dir: str | None = None,
-                            triangulation: str = "top2", device="cuda") -> ShardedPosePipeline:
+                            triangulation: str = "top2", mesh=None,
+                            device="cuda") -> ShardedPosePipeline:
     """The pipeline `estimate_pose_from_video` runs: the project's cameras,
     the estimator (from ``checkpoint``, ``estimator_kwargs`` passed to
     `models.TopDownEstimator`), the person detector and the triangulation,
-    on ``device``."""
+    on ``device``, over ``mesh`` where given."""
     intr, extr = _param_dirs(project_dir, intrinsic_params_dir, extrinsic_params_dir)
     cam_stack = stack_camera_params(_load_camera_param_lists(camera_names, intr, extr,
                                                              project_dir))
@@ -162,7 +169,7 @@ def build_estimate_pipeline(project_dir: str = "", camera_names=None,
                                 num_joints=num_joints, device=device, **(estimator_kwargs or {}))
     detector = build_detector(detector_model, checkpoint=detector_checkpoint,
                               bbox_thr=detector_bbox_thr, select=detector_select, device=device)
-    return ShardedPosePipeline(estimator, cam_stack, conf_threshold=conf_threshold,
+    return ShardedPosePipeline(estimator, cam_stack, mesh=mesh, conf_threshold=conf_threshold,
                                detector=detector, triangulation=triangulation, device=device)
 
 
@@ -203,14 +210,17 @@ def estimate_pose_from_video(
       ``{"use_fused_stage1": True, "use_fused_decode": True}`` for the
       stage-1 and decode kernels (off by default, as in the JAX package).
     - ``triangulation``: "top2" or "nview".
-    - ``mesh`` must be None, and the live preview (``live_preview_dir``,
-      ``live_preview_show``) is not ported: both raise.
+    - ``mesh``: a mesh of `parallel.make_mesh`; every rank calls this with
+      the same arguments and returns the same arrays (``block_size`` a
+      multiple of the mesh size), and the mesh's first rank writes the
+      files.  None runs on one device.
+    - The live preview (``live_preview_dir``, ``live_preview_show``) is not
+      ported: it raises.
 
     Returns ``(kpts_2d, heatmaps_2d, kpts_3d)`` and writes the ``.npy``
     artifacts into ``save_dir`` (default: beside the recordings).
     """
-    if mesh is not None:
-        raise NotImplementedError("the port runs on one device: mesh must be None")
+    check_mesh(mesh, device)
     if live_preview_dir or live_preview_show:
         raise NotImplementedError("the live preview is not ported yet (ROADMAP Queue A item 11)")
     save_dir = save_dir or os.path.dirname(str(recording_paths[0]))
@@ -227,7 +237,7 @@ def estimate_pose_from_video(
         cam_lists = _load_camera_param_lists(camera_names, intr, extr, project_dir)
         kpts_3d = get_pose_3d(kpts_2d, dict(enumerate(cam_lists)), method=triangulation,
                               device=device).cpu().numpy()
-        np.save(k3_path, kpts_3d)
+        _save(mesh, [(k3_path, kpts_3d)])
         return kpts_2d, heatmaps, kpts_3d
 
     pipeline = build_estimate_pipeline(
@@ -236,11 +246,19 @@ def estimate_pose_from_video(
         detector_bbox_thr=detector_bbox_thr, detector_select=detector_select,
         conf_threshold=conf_threshold, num_joints=num_joints, estimator_kwargs=estimator_kwargs,
         intrinsic_params_dir=intr, extrinsic_params_dir=extr, triangulation=triangulation,
-        device=device)
+        mesh=mesh, device=device)
     kpts_2d, heatmaps, kpts_3d = run_pipeline_on_videos(pipeline, recording_paths,
                                                         block_size=block_size)
-    os.makedirs(save_dir, exist_ok=True)
-    np.save(k2_path, kpts_2d)
-    np.save(hm_path, heatmaps)
-    np.save(k3_path, kpts_3d)
+    _save(mesh, [(k2_path, kpts_2d), (hm_path, heatmaps), (k3_path, kpts_3d)])
     return kpts_2d, heatmaps, kpts_3d
+
+
+def _save(mesh, arrays) -> None:
+    """``np.save`` each (path, array), by the mesh's first rank only; the
+    other ranks wait until the files are written."""
+    if mesh is None or is_first_rank(mesh):
+        for path, arr in arrays:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            np.save(path, arr)
+    if mesh is not None:
+        mesh_barrier(mesh)

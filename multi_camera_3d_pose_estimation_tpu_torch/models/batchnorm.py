@@ -16,6 +16,11 @@ every JAX model of the package uses:
 
 A `BatchNorm` starts in eval mode, as the flax modules default to
 ``train=False``: a model takes batch statistics only after ``model.train()``.
+
+In a data-parallel train step (`synced_batch_norm`) the batch is the global
+one: the JAX package's step is a global-view program that XLA shards, so
+its batch means are over every device's rows (flax's ``axis_name`` matters
+only under ``pmap``).
 """
 
 from __future__ import annotations
@@ -25,11 +30,13 @@ import contextlib
 import torch
 import torch.nn as nn
 
-__all__ = ["BatchNorm", "batch_norm", "calibrating_batch_norm", "MOMENTUM"]
+__all__ = ["BatchNorm", "batch_norm", "calibrating_batch_norm", "synced_batch_norm",
+           "MOMENTUM"]
 
 MOMENTUM = 0.9  # flax's: running = MOMENTUM·running + (1 − MOMENTUM)·batch
 
 _CALIBRATING = False
+_SYNC = None  # (reduce, share) within `synced_batch_norm`
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -55,18 +62,39 @@ def calibrating_batch_norm():
         _CALIBRATING = False
 
 
+@contextlib.contextmanager
+def synced_batch_norm(reduce, share: float):
+    """Within it, train-mode `batch_norm` takes the statistics of a
+    data-parallel step's global batch: each call weights its per-channel
+    E[x] and E[x²] by ``share`` (this rank's share of the global batch),
+    packs them into one tensor and ``reduce`` (an all-reduce sum over the
+    ranks whose backward sums the gradient over the ranks too,
+    `parallel.mesh.all_reduce_sum`) returns the global means on every rank;
+    the running statistics then move the same on every rank."""
+    global _SYNC
+    _SYNC = (reduce, share)
+    try:
+        yield
+    finally:
+        _SYNC = None
+
+
 def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype) -> torch.Tensor:
     """flax's BatchNorm over NCHW ``y``, cast to ``dtype``: the running
     statistics in eval mode, the batch's (and the running update, without
-    autograd) when ``bn.training``.  Inside `calibrating_batch_norm`, it
-    first takes its statistics from this batch."""
+    autograd) when ``bn.training``, over the global batch inside
+    `synced_batch_norm`.  Inside `calibrating_batch_norm`, it first takes
+    its statistics from this batch."""
     if _CALIBRATING:
         bn.running_mean.zero_()
         bn.running_var.fill_(y.float().square().mean().item())
     yf = y.to(torch.promote_types(y.dtype, torch.float32))  # f32, or f64 for f64 inputs
     if bn.training:
-        mean = yf.mean((0, 2, 3))
-        var = torch.clamp(yf.square().mean((0, 2, 3)) - mean.square(), min=0.0)
+        mean, mean_sq = yf.mean((0, 2, 3)), yf.square().mean((0, 2, 3))
+        if _SYNC is not None:
+            reduce, share = _SYNC
+            mean, mean_sq = reduce(torch.stack([mean, mean_sq]) * share).unbind(0)
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1 - MOMENTUM) * mean)
             bn.running_var.copy_(MOMENTUM * bn.running_var + (1 - MOMENTUM) * var)

@@ -294,14 +294,17 @@ def _masked_grads(cfg, keys, grads, leaves, learn_mask):
     return out
 
 
-def _clip_adam_step(cfg, leaves, grads, mu, nu, count):
+def _clip_adam_step(cfg, leaves, grads, mu, nu, count, g_norm=None):
     """clip_by_global_norm → scale_by_adam → scale(−lr), in optax's order.
-    Returns (new leaves, new mu, new nu)."""
-    sq = None
-    for g in grads:
-        s = (g * g).sum()
-        sq = s if sq is None else sq + s
-    g_norm = torch.sqrt(sq)
+    ``g_norm``: the global norm to clip by, where ``grads`` are one rank's
+    share of the gradients (default: the norm of ``grads``).  Returns (new
+    leaves, new mu, new nu)."""
+    if g_norm is None:
+        sq = None
+        for g in grads:
+            s = (g * g).sum()
+            sq = s if sq is None else sq + s
+        g_norm = torch.sqrt(sq)
     clip = cfg.grad_clip
     grads = [torch.where(g_norm < clip, g, (g / g_norm) * clip) for g in grads]
     b1, b2 = cfg.betas

@@ -237,8 +237,9 @@ def run_accuracy_harness(n_frames: int = 32, det_steps: int = 200, pose_steps: i
     ``distortion``, ``hard``: the scene (`synthetic.SyntheticSceneConfig`);
     ``det_select``: the pipeline's box selection ("top1" or "consistent");
     ``workdir``: where the trainers checkpoint and resume, the file names
-    carrying the configuration; ``mesh``: must be None (the pipeline runs
-    on one device).
+    carrying the configuration; ``mesh``: a mesh of `parallel.make_mesh`
+    to run the block pipeline over (every rank trains the same models from
+    the seed, then takes the first rank's weights), or None (one device).
     """
     from ..io.camera_params import stack_camera_params
     from ..ops.triangulation import triangulate_nview
@@ -277,6 +278,12 @@ def run_accuracy_harness(n_frames: int = 32, det_steps: int = 200, pose_steps: i
     for i in range(n_frames):
         frames[i], proj_all[i], _ = scene.render_views(traj[i])
 
+    if mesh is not None:
+        from ..parallel.mesh import broadcast_from_first
+
+        with torch.no_grad():
+            broadcast_from_first([*model.state_dict().values(),
+                                  *detector.model.state_dict().values()], mesh)
     decode = "heatmap" if pose_family == "heatmap" else "simcc"
     est = TopDownEstimator(model, input_size=input_size, decode=decode, flip_test=flip_test,
                            decode_mode=decode_mode, device=device)

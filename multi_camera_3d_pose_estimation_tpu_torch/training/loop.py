@@ -20,6 +20,12 @@ product.
 ``jax.tree.flatten((params, batch_stats, opt_state))``.  The leaves' flax
 paths come from the model's own ``state_dict`` (`models.convert.flax_leaves`),
 so a run started on either side resumes on the other.
+
+With a mesh the step is data-parallel with the JAX package's global-batch
+semantics (its step is a global-view program that XLA shards): each rank
+runs its rows of the batch, BatchNorm takes the global batch's statistics,
+and the loss is the user's loss over the global batch, so the step equals
+the one-device step on that batch.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..models.batchnorm import synced_batch_norm
 from ..models.convert import flax_leaves
 from ..models.detector import CenterNetDetector
 from ..models.hrnet import HRNet
@@ -39,6 +46,8 @@ from ..models.rtmdet import RTMDet
 from ..models.rtmpose import RTMPose
 from ..models.swin import SwinPose
 from ..models.yolox import YOLOX
+from ..parallel.mesh import (all_reduce_sum, all_reduce_sum_flat, broadcast_from_first,
+                             check_mesh, gather_rows, is_first_rank, local_rows, mesh_barrier)
 
 __all__ = ["TrainState", "make_train_step", "ClipAdamW", "AdamState", "adam",
            "warmup_cosine_decay_schedule", "model_family", "apply_model", "build_train_model"]
@@ -164,13 +173,15 @@ def adam(learning_rate: float | Schedule) -> ClipAdamW:
 class TrainState:
     """A model under training: the model (its parameters and BatchNorm
     statistics), its `models.convert` family, the optimizer and its state,
-    and the number of steps taken."""
+    the number of steps taken, and the mesh of a data-parallel step (None
+    on one device)."""
 
     model: torch.nn.Module
     family: str
     tx: ClipAdamW
     opt_state: AdamState
     step: int
+    mesh: object = None
 
     def _layout(self):
         """(params, batch_stats) leaves in flax order: (state_dict key, axis
@@ -182,7 +193,14 @@ class TrainState:
         return params, stats, index
 
     def save(self, path: str) -> None:
-        """Write the JAX package's TrainState ``.npz``."""
+        """Write the JAX package's TrainState ``.npz``; on a mesh every rank
+        calls it, the first writes and the others wait for it."""
+        if self.mesh is None or is_first_rank(self.mesh):
+            self._write(path)
+        if self.mesh is not None:
+            mesh_barrier(self.mesh)
+
+    def _write(self, path: str) -> None:
         params, stats, index = self._layout()
         sd = self.model.state_dict()
 
@@ -203,7 +221,24 @@ class TrainState:
     def load(cls, path: str, template: "TrainState") -> "TrainState":
         """Read a TrainState ``.npz`` (the JAX package's or `save`'s) into
         ``template``'s model, in place; returns the loaded state.  A leaf
-        count or shape that differs from the template's raises."""
+        count or shape that differs from the template's raises.  On a mesh
+        every rank calls it: the first reads the file and the others take
+        its values."""
+        mesh = template.mesh
+        if mesh is None:
+            return cls._read(path, template)
+        state = cls._read(path, template) if is_first_rank(mesh) else template
+        model = template.model
+        head = torch.tensor([state.opt_state.count, state.step],
+                            device=next(model.parameters()).device)
+        broadcast_from_first([*model.state_dict().values(), *state.opt_state.mu,
+                              *state.opt_state.nu, head], mesh)
+        return cls(model, template.family, template.tx,
+                   AdamState(int(head[0]), state.opt_state.mu, state.opt_state.nu),
+                   int(head[1]), mesh)
+
+    @classmethod
+    def _read(cls, path: str, template: "TrainState") -> "TrainState":
         params, stats, index = template._layout()
         n_opt = 1 + 2 * len(params) + int(template.tx.has_schedule)
         with np.load(path, allow_pickle=False) as f:
@@ -236,7 +271,47 @@ class TrainState:
                 for key, order in params:
                     moments[index[key]] = port(key, order, named[key]).clone()
         return cls(model, template.family, template.tx, AdamState(count, mu, nu),
-                   int(flat["step"]))
+                   int(flat["step"]), template.mesh)
+
+
+def _gather_outputs(outputs, mesh):
+    """The model's outputs (a tensor, or a tuple or dict of them) gathered
+    over the ranks, differentiably (`parallel.mesh.gather_rows`)."""
+    if isinstance(outputs, torch.Tensor):
+        return gather_rows(outputs, mesh)
+    if isinstance(outputs, dict):
+        return {k: _gather_outputs(v, mesh) for k, v in outputs.items()}
+    return type(outputs)(_gather_outputs(v, mesh) for v in outputs)
+
+
+def _global_loss(model: torch.nn.Module, loss_fn: Callable, batch: dict, mesh):
+    """``loss_fn`` over the global batch, this rank running its rows of the
+    images: BatchNorm takes the global batch's statistics and the outputs
+    are gathered, differentiably, so every rank computes the one-device
+    loss (the user's loss normalises over the global batch, e.g. by the
+    sum of all visibility weights)."""
+    images = local_rows(batch["images"], mesh)
+    share = images.shape[0] / batch["images"].shape[0]
+    with synced_batch_norm(lambda x: all_reduce_sum(x, mesh), share):
+        outputs = apply_model(model, images)
+    return loss_fn(_gather_outputs(outputs, mesh), batch)
+
+
+def _mean_over_ranks(grads: list, mesh) -> list:
+    """The gradients averaged over the ranks, one all-reduce per dtype, each
+    in its own layout (the clip's norms sum in memory order).
+
+    Every rank differentiated the same global loss, and the backward of the
+    outputs' gather and of the statistics' all-reduce each sum over the
+    ranks: a rank's gradient is (mesh size) x the share of dL/dθ that its
+    rows carry.  Their average is exactly the one-device dL/dθ.  A sum
+    would be (mesh size) x too large, and plain DDP (the average of each
+    rank's gradient of its own rows' loss) differentiates another loss
+    wherever the loss's weights differ between the ranks.
+    """
+    out = all_reduce_sum_flat(grads, mesh)
+    torch._foreach_div_(out, float(mesh.size()))
+    return out
 
 
 def make_train_step(model: torch.nn.Module, loss_fn: Callable, tx: ClipAdamW | None = None,
@@ -247,29 +322,41 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, tx: ClipAdamW | N
       for ``batch["images"]`` (B, H, W, 3) (`apply_model`).
     - ``tx``: the optimizer; None is `ClipAdamW` (``learning_rate``, weight
       decay 1e-4, ``grad_clip``), the JAX package's default.
-    - ``init_fn() -> TrainState`` at step 0 with the model's current weights.
+    - ``init_fn() -> TrainState`` at step 0 with the model's current weights
+      (on a mesh, the first rank's, on every rank).
     - ``step_fn(state, batch) -> (state, loss)``: one step; the model's
       parameters and statistics change in place, ``loss`` stays on the
       device (no synchronisation).
-    - ``mesh``: data-parallel steps are not ported yet and raise.
+    - ``mesh``: a mesh of `parallel.make_mesh` for a data-parallel step.
+      Every rank is given the global ``batch`` (its leading axis a multiple
+      of the mesh size) and runs its rows of the images; BatchNorm's
+      statistics, the loss and the gradients are the global batch's, so the
+      step equals the one-device step, and every rank applies the same
+      update.
     """
-    if mesh is not None:
-        raise NotImplementedError("data-parallel train steps are not ported yet "
-                                  "(ROADMAP Queue A item 7, multi-device)")
     tx = tx if tx is not None else ClipAdamW(learning_rate, grad_clip=grad_clip)
     family = model_family(model)
     params = list(model.parameters())
+    check_mesh(mesh, params[0].device)
 
     def init_fn() -> TrainState:
-        return TrainState(model, family, tx, tx.init(params), 0)
+        if mesh is not None:
+            with torch.no_grad():
+                broadcast_from_first(list(model.state_dict().values()), mesh)
+        return TrainState(model, family, tx, tx.init(params), 0, mesh)
 
     def step_fn(state: TrainState, batch: dict):
         model.train()
         with torch.enable_grad():
-            loss = loss_fn(apply_model(model, batch["images"]), batch)
+            if mesh is None:
+                loss = loss_fn(apply_model(model, batch["images"]), batch)
+            else:
+                loss = _global_loss(model, loss_fn, batch, mesh)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if mesh is not None:
+            grads = _mean_over_ranks(grads, mesh)
         opt_state = tx.update(grads, state.opt_state, params)
-        return TrainState(model, family, tx, opt_state, state.step + 1), loss.detach()
+        return TrainState(model, family, tx, opt_state, state.step + 1, mesh), loss.detach()
 
     return init_fn, step_fn

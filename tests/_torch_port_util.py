@@ -1,7 +1,14 @@
-"""Shared inputs of the port's parity tests (tests/test_torch_port_*.py)."""
+"""Shared inputs of the port's parity tests (tests/test_torch_*.py).
 
-import jax
-import jax.numpy as jnp
+JAX is imported inside the functions that use it: the rank processes of the
+multi-rank tests (`run_ranks`) import this module and must not import JAX.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+
 import numpy as np
 
 
@@ -17,6 +24,9 @@ def random_variables(module, x_shape, seed, jitter=True):
     with ``jitter`` (so that the attention's q·k is of order one) or
     N(0, 0.02²) without (flax's initialiser).
     """
+    import jax
+    import jax.numpy as jnp
+
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.zeros(x_shape, jnp.float32))
     rng = np.random.default_rng(seed)
 
@@ -46,6 +56,9 @@ def zero_variables(module, x_shape):
     ``jax.eval_shape`` (no flax init runs: an unjitted ``init`` of a small
     HRNet takes about 20 s on one CPU core).  For the JAX package's
     ``load_torch_*``, which overwrite every leaf."""
+    import jax
+    import jax.numpy as jnp
+
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.zeros(x_shape, jnp.float32))
     return jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
 
@@ -55,6 +68,8 @@ def fast_flax_init(monkeypatch, *classes):
     zeros, for the JAX package's builders and CLIs that initialise a model
     and then load a checkpoint over every leaf of it."""
     import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
 
     def init(self, rngs, *args, **kwargs):
         shapes = jax.eval_shape(lambda r, *a: nn.Module.init(self, r, *a, **kwargs), rngs, *args)
@@ -107,3 +122,49 @@ def write_pth(path, family, cfg, seed=0, edit=None, input_size=(32, 64)):
         state = edit(state)
     torch.save({"state_dict": state}, str(path))
     return str(path)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# A rank process: JAX blocked, one thread, the test file loaded by its path
+# and its rank function called.
+_RANK_CODE = """
+import importlib.util, sys
+sys.modules["jax"] = None
+sys.modules["multi_camera_3d_pose_estimation_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+spec = importlib.util.spec_from_file_location("rank_module", sys.argv[2])
+module = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(module)
+getattr(module, sys.argv[3])(int(sys.argv[4]), int(sys.argv[5]), sys.argv[6], sys.argv[7])
+"""
+
+
+def run_ranks(test_file, fn_name, world, out_dir, timeout=240):
+    """Run ``fn_name(rank, world, "127.0.0.1:<port>", out_dir)`` of
+    ``test_file`` in ``world`` processes (a gloo group's ranks: the function
+    calls ``init_distributed``), none of which imports JAX; each writes its
+    results under ``out_dir``.  Raises with the output of a rank that
+    failed."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_CODE, REPO, str(test_file), fn_name,
+                               str(rank), str(world), address, str(out_dir)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env, cwd=str(out_dir))
+             for rank in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {rank} of {fn_name} failed:\n{out[-4000:]}")
+    return outs

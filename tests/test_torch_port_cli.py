@@ -181,7 +181,7 @@ def test_estimate_reuses_artifacts(project, estimated):
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
         p_estimate(paths, project_dir=str(root), save_dir=save, live_preview_dir="x",
                    device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh of parallel.make_mesh only
         p_estimate(paths, project_dir=str(root), save_dir=save, mesh=object(), device="cpu")
 
 

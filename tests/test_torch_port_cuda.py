@@ -662,3 +662,44 @@ def test_pth_checkpoint_on_the_card(card, tmp_path):
         out[ckpt] = {k: v.cpu() for k, v in est.predict_batch(frames).items()}
         assert bn.fused_bottleneck_block.launches > 0 and fd.heatmap_decode_raw.launches == 1
     assert all(torch.equal(out[pth][k], out[npz][k]) for k in out[pth])
+
+
+def test_one_rank_nccl_pipeline_matches_one_device(card):
+    """``make_mesh(1)`` on the card starts a one-rank NCCL group by itself;
+    the pipeline on it (every collective run, over one rank) launches the
+    stage-1 and decode kernels as on one device and gives its outputs bit
+    for bit, for top-1 and consistent detection alike."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.parallel import (ShardedPosePipeline,
+                                                                    make_mesh, run_clips_batched)
+
+    tiny = {"widths": (8, 16, 32, 64), "modules": (1, 1, 1, 1), "stem": 16}
+    shape = (8, 2, 64, 96, 3)
+    frames = torch.from_numpy(np.random.default_rng(0).integers(0, 256, shape,
+                                                                dtype=np.uint8)).to(card)
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh(1)
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        for select in ("top1", "consistent"):
+            pipe = build_pipeline(tiny, (32, 64), shape, device=card,
+                                  detector="test_rtmdet_micro", detector_select=select)
+            sharded = ShardedPosePipeline(pipe.estimator, pipe.cam_stack, mesh=mesh,
+                                          detector=pipe.detector, device=card)
+            out = {}
+            for name, p in (("one", pipe), ("mesh", sharded)):
+                bn.fused_bottleneck_block.launches = fd.heatmap_decode_raw.launches = 0
+                out[name] = {k: v.cpu() for k, v in p.run(frames).items()}
+                assert (bn.fused_bottleneck_block.launches,
+                        fd.heatmap_decode_raw.launches) == (4, 1)
+            assert all(torch.equal(out["one"][k].nan_to_num(7.0), out["mesh"][k].nan_to_num(7.0))
+                       for k in out["one"])
+            clips = run_clips_batched(sharded, frames.reshape((2, 4) + shape[1:]), split=False)
+            assert all(torch.equal(clips[k].cpu().flatten(0, 1).nan_to_num(7.0),
+                                   out["one"][k].nan_to_num(7.0)) for k in clips)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

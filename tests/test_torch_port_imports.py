@@ -7,7 +7,7 @@ again, with ``chip_smoke.py``, where ``cv2``, ``yaml`` and ``tqdm`` fail too
 where a video, an image file, a YAML file or a progress bar is used); and
 the training modules and the train CLI by name, the same way; and the
 checkpoint modules (the ``.pth`` readers, the drill, the MMPose mirrors'
-copy and the convert CLI) by name.
+copy and the convert CLI) by name; and the mesh modules by name.
 """
 
 import os
@@ -123,3 +123,32 @@ print(len(names))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) == 8
+
+
+def test_parallel_modules_import_without_jax_or_optional_modules():
+    """The rank meshes and the mesh paths, named one by one: no JAX, nothing
+    of the JAX package, no cv2, yaml or tqdm; ``parallel`` exports the JAX
+    package's eight names."""
+    code = """
+import importlib, sys
+for m in ("jax", "multi_camera_3d_pose_estimation_tpu", "cv2", "yaml", "tqdm"):
+    sys.modules[m] = None
+port = "multi_camera_3d_pose_estimation_tpu_torch"
+names = [f"{port}.parallel", f"{port}.parallel.mesh", f"{port}.parallel.pipeline"]
+for name in names:
+    importlib.import_module(name)
+parallel = sys.modules[f"{port}.parallel"]
+assert parallel.__all__ == ["make_mesh", "make_clip_mesh", "init_distributed", "data_sharding",
+                            "replicated", "ShardedPosePipeline", "sharded_refine_step",
+                            "run_clips_batched"], parallel.__all__
+assert all(hasattr(parallel, n) for n in parallel.__all__)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == 3

@@ -186,6 +186,8 @@ def test_pipeline_end_to_end_matches_jax(jax_pipe, frames):
 
 
 def test_pipeline_refuses_a_mesh():
+    """A mesh is a DeviceMesh of `parallel.make_mesh` (the mesh paths are
+    tests/test_torch_parallel_*.py's); anything else is refused."""
     est = TopDownEstimator(HRNet(17, TINY, device="cpu"), INPUT, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ShardedPosePipeline(est, synthetic_rig(2, 96, 80), mesh=object(), device="cpu")

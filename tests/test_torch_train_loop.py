@@ -244,6 +244,8 @@ def test_train_state_rejects_another_model(tiny, tmp_path):
 
 
 def test_data_parallel_step_is_not_ported():
+    """The data-parallel step takes a DeviceMesh of `parallel.make_mesh`
+    (held in tests/test_torch_parallel_steps.py); anything else is refused."""
     model = HRNet(17, TINY, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tloop.make_train_step(model, lambda o, b: o.sum(), mesh=object())
