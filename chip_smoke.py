@@ -162,8 +162,19 @@ Phases (each synchronises the card; any failure exits non-zero):
    test_tiny's weights within 1e-3 lr per step); the group destroyed.
    Every collective really runs, over one rank: no multi-GPU speed is
    claimed;
-23. one JSON line with every kernel (with its launches on phases 15-17, 19,
-   20, 21 and 22), the script's wall time, the card's line, and the final
+23. the calibration chain (`calib`) in float64: noisy (0.2 px) projected
+   corners of the synthetic 2-camera rig (a 6x9 board, square 3.0; 12 board
+   poses per camera, 10 in front of both; no images: the card's machine has
+   no cv2), `calibrate_camera` per camera and `stereo_calibrate` on the card,
+   every LM solve under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   sync inside the steps) and timed (seconds, steps/s, the last cost), each
+   result against the port's own CPU run and against the truth; the rig
+   written as `cli.configure.configure_cameras` writes it (origin camera at
+   R = I, T = 0) and read back through ``io``; phase 3's headline block on
+   the calibrated rig (4 Bottleneck and 1 decode launch per block, kpts_2d
+   bit for bit phase 3's, kpts_3d against the CPU-calibrated rig, frames/s);
+24. one JSON line with every kernel (with its launches on phases 15-17, 19,
+   20, 21, 22 and 23), the script's wall time, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
@@ -2641,6 +2652,265 @@ def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float) -> dict:
     return res
 
 
+# The calibration chain (phase 23).
+CAL_BOARD = (6, 9, 3.0)  # rows, columns, square: tests/test_calibration.py::synth_views
+CAL_NOISE = 0.2  # px of corner noise, as tests/test_calibration.py:64-70
+CAL_VIEWS, CAL_PAIRS = 12, 10  # board poses per camera (intrinsics), seen by both (stereo)
+CAL_CPU_RTOL = 1e-8  # card against the port's CPU run: rmse, K, dist (to the largest entry)
+CAL_STEREO_CPU_RTOL = 1e-7  # R, T: inherit both intrinsics' spread along the flat valley
+CAL_K_RTOL = 0.02  # the focal lengths against truth at 0.2 px (tests/test_calibration.py:69-70)
+# R_rel and T_rel against truth.  tests/test_calibration.py:107-108 holds a
+# noiseless solve at 1e-4 / 1e-3; at 0.2 px the chain inherits the
+# intrinsics' errors (principal points within about 5 px), which moved
+# R_rel by up to 0.011 and T_rel by up to 3.2 units (of a 34-unit baseline
+# at 150-220 units) over six seeds on the CPU: held at twice that.
+CAL_R_ATOL, CAL_T_ATOL = 0.025, 6.5
+CAL_3D_RTOL = 1e-4  # kpts_3d on the card's rig against the CPU's rig (f32 DLT), of the largest
+
+
+def calibration_corners(rig: dict, seed: int = 23) -> dict:
+    """Noisy projected corners of the float64 rig ``{"K", "R", "T"}`` (no
+    distortion): for each camera CAL_VIEWS board poses in front of it, and
+    CAL_PAIRS board poses in front of both.  The synthetic rig's cameras
+    look apart (yawed -20 and +20 degrees, 12 degrees of half field at
+    f = 600 over 256 px), so no board lies inside both frames: the corners
+    are the pinhole projections at up to 30 degrees off axis for both
+    (the intrinsic views spread as wide), outside the 256x256 frames; the
+    solvers see only corner coordinates."""
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch.calib import board_object_points
+
+    rng = np.random.default_rng(seed)
+    rows, cols, square = CAL_BOARD
+    obj = board_object_points(rows, cols, square)
+    centre = obj.mean(0)
+
+    def rot(v):
+        th = np.linalg.norm(v)
+        k = v / th
+        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+
+    def project(X, c):
+        x = X @ rig["R"][c].T + rig["T"][c]
+        uv = x[:, :2] / x[:, 2:] * np.diag(rig["K"][c])[:2] + rig["K"][c][:2, 2]
+        return uv + rng.normal(0, CAL_NOISE, uv.shape)
+
+    intr = []
+    for c in range(2):
+        Rc_inv, Tc = rig["R"][c].T, rig["T"][c]
+        imgs = []
+        for _ in range(CAL_VIEWS):  # a pose in camera c's frame, mapped to the world
+            R = rot(rng.uniform(-0.4, 0.4, 3))
+            z = rng.uniform(60, 110)
+            t = np.array([rng.uniform(-0.5, 0.5) * z, rng.uniform(-0.5, 0.5) * z, z]) - R @ centre
+            imgs.append(project((obj @ R.T + t - Tc) @ Rc_inv.T, c))
+        intr.append(np.stack(imgs))
+    i0, i1 = [], []
+    for _ in range(CAL_PAIRS):
+        R = rot(rng.uniform(-0.3, 0.3, 3))
+        X = obj @ R.T + np.array([rng.uniform(-5, 5), rng.uniform(-4, 4),
+                                  rng.uniform(150, 220)]) - R @ centre
+        i0.append(project(X, 0))
+        i1.append(project(X, 1))
+    return {"intr_obj": np.stack([obj] * CAL_VIEWS), "intr": intr,
+            "stereo_obj": np.stack([obj] * CAL_PAIRS), "stereo": (np.stack(i0), np.stack(i1))}
+
+
+def run_calibration(corners: dict, dev) -> dict:
+    """`calibrate_camera` per camera, then `stereo_calibrate` on the two
+    calibrations, on ``dev`` in float64.  On the card every LM solve runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside the
+    steps raises) and is timed alone: seconds, steps and the cost history's
+    last value per solve."""
+    import torch
+
+    from multi_camera_3d_pose_estimation_tpu_torch.calib import (calibrate_camera, intrinsic,
+                                                                 pnp, stereo, stereo_calibrate)
+
+    lm = intrinsic.levenberg_marquardt
+    solves = []
+
+    def timed_lm(fn, x0, n_iter=50, lam0=1e-3):
+        on_card = x0.is_cuda
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            x, final, hist = lm(fn, x0, n_iter, lam0)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        if on_card:
+            torch.cuda.synchronize()
+        solves.append({"seconds": time.perf_counter() - t0, "steps": n_iter,
+                       "problems": x0.shape[0] if x0.dim() == 2 else 1, "n": x0.shape[-1],
+                       "last_cost": hist[..., -1].cpu().tolist()})
+        return x, final, hist
+
+    res = {"cameras": [], "solves": solves}
+    modules = (intrinsic, pnp, stereo)
+    for m in modules:
+        m.levenberg_marquardt = timed_lm
+    try:
+        for c in range(2):
+            t0 = time.perf_counter()
+            out = calibrate_camera(corners["intr_obj"], corners["intr"][c], device=dev)
+            res["cameras"].append({"seconds": time.perf_counter() - t0, "rmse": out[0],
+                                   "K": out[1], "dist": out[2]})
+        t0 = time.perf_counter()
+        rmse, R, T = stereo_calibrate(corners["stereo_obj"], *corners["stereo"],
+                                      res["cameras"][0]["K"], res["cameras"][0]["dist"],
+                                      res["cameras"][1]["K"], res["cameras"][1]["dist"],
+                                      device=dev)
+        res["stereo"] = {"seconds": time.perf_counter() - t0, "rmse": rmse, "R": R, "T": T}
+    finally:
+        for m in modules:
+            m.levenberg_marquardt = lm
+    return res
+
+
+def write_calibrated_rig(root: str, cal: dict) -> dict:
+    """The rig as `cli.configure.configure_cameras` writes it (the origin
+    camera at R = I, T = 0, camera 1 from the stereo result) through the
+    port's ``io``, read back with `get_params_from_name` and stacked."""
+    import os
+
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch.io import (
+        get_params_from_name, save_camera_intrinsics, save_extrinsic_calibration_parameters,
+        stack_camera_params)
+
+    names = ["cam0", "cam1"]
+    for name, cam in zip(names, cal["cameras"]):
+        save_camera_intrinsics(cam["K"], cam["dist"], name, root_path=root)
+    save_extrinsic_calibration_parameters(np.eye(3), np.zeros((3, 1)), names[0], root_dir=root)
+    save_extrinsic_calibration_parameters(cal["stereo"]["R"], cal["stereo"]["T"], names[1],
+                                          root_dir=root)
+    return stack_camera_params([
+        get_params_from_name(n, os.path.join(root, "intrinsic_camera_parameters"),
+                             os.path.join(root, "extrinsic_camera_parameters"))[1]
+        for n in names])
+
+
+def run_calibration_phase(dev, pipe, blocks_u8, phase3_fps: float) -> dict:
+    """Phase 23: the calibration chain on the card in float64 against the
+    port's CPU run and the truth, the rig written and read back, and the
+    headline block on the calibrated rig."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import synthetic_rig
+    from multi_camera_3d_pose_estimation_tpu_torch.parallel import ShardedPosePipeline
+
+    rig = {k: np.asarray(v, np.float64) for k, v in synthetic_rig(C, H, W).items()}
+    corners = calibration_corners(rig)
+    # The first run on the card pays the one-time costs (torch.func's import,
+    # cuSOLVER's handles); the second is the one timed and checked.
+    t0 = time.perf_counter()
+    first = run_calibration(corners, dev)
+    res = {"launches": {}, "first_run_s": time.perf_counter() - t0}
+    cal = {"cuda": run_calibration(corners, dev), "cpu": run_calibration(corners, "cpu")}
+    res["repeat_equal"] = all(
+        np.array_equal(a[k], b[k]) for a, b in zip(first["cameras"] + [first["stereo"]],
+                                                   cal["cuda"]["cameras"] + [cal["cuda"]["stereo"]])
+        for k in ("rmse", "K", "dist", "R", "T") if k in a)
+    log(f"  first calibration run on the card {res['first_run_s']:.3f} s; the second equal to it "
+        f"bit for bit: {res['repeat_equal']}")
+    for side in ("cuda", "cpu"):
+        r = cal[side]
+        steps = sum(s["steps"] for s in r["solves"])
+        lm_s = sum(s["seconds"] for s in r["solves"])
+        res[side] = {"intrinsic_s": [c["seconds"] for c in r["cameras"]],
+                     "stereo_s": r["stereo"]["seconds"], "lm_steps": steps, "lm_s": lm_s,
+                     "lm_steps_per_s": steps / lm_s,
+                     "solves": r["solves"]}
+        where = "the card" if side == "cuda" else "the CPU"
+        log(f"  calibration on {where} (float64): intrinsics "
+            f"{[round(c['seconds'], 3) for c in r['cameras']]} s "
+            f"(rmse {[round(c['rmse'], 4) for c in r['cameras']]} px), stereo "
+            f"{r['stereo']['seconds']:.3f} s (rmse {r['stereo']['rmse']:.4f} px); LM {steps} steps "
+            f"in {lm_s:.3f} s -> {steps / lm_s:.1f} steps/s")
+        for s in r["solves"]:
+            last = np.round(np.atleast_1d(s["last_cost"]), 6).tolist()
+            log(f"    LM solve: {s['problems']} x n={s['n']}, {s['steps']} steps in "
+                f"{s['seconds']:.3f} s ({s['steps'] / s['seconds']:.1f} steps/s), last cost "
+                f"(per problem) {last}")
+    # The card against the CPU, and both against the truth.
+    gaps = {}
+    for c in range(2):
+        a, b = cal["cuda"]["cameras"][c], cal["cpu"]["cameras"][c]
+        gaps[f"cam{c}"] = {"rmse": abs(a["rmse"] - b["rmse"]) / b["rmse"],
+                           "K": rel_gap(a["K"], b["K"]),
+                           "dist": float(np.abs(a["dist"] - b["dist"]).max())}
+    sa, sb = cal["cuda"]["stereo"], cal["cpu"]["stereo"]
+    gaps["stereo"] = {"rmse": abs(sa["rmse"] - sb["rmse"]) / sb["rmse"],
+                      "R": rel_gap(sa["R"], sb["R"]), "T": rel_gap(sa["T"], sb["T"])}
+    R_rel = rig["R"][1] @ rig["R"][0].T
+    T_rel = rig["T"][1] - R_rel @ rig["T"][0]
+    truth = {"f_rel": [float(np.abs(np.diag(c["K"])[:2] / np.diag(rig["K"][i])[:2] - 1).max())
+                       for i, c in enumerate(cal["cuda"]["cameras"])],
+             "pp_px": [(c["K"][:2, 2] - rig["K"][i][:2, 2]).tolist()
+                       for i, c in enumerate(cal["cuda"]["cameras"])],
+             "R_abs": float(np.abs(sa["R"] - R_rel).max()),
+             "T_abs": float(np.abs(sa["T"].ravel() - T_rel).max())}
+    res["card_vs_cpu"], res["truth"] = gaps, truth
+    log(f"  card against the CPU (relative to the largest entry; dist absolute): {gaps} "
+        f"(limits {CAL_CPU_RTOL}, stereo R and T {CAL_STEREO_CPU_RTOL})")
+    log(f"  against the truth: focal lengths {truth['f_rel']} relative (limit {CAL_K_RTOL}), "
+        f"principal points {np.round(truth['pp_px'], 3).tolist()} px; R_rel {truth['R_abs']:.3g} "
+        f"(limit {CAL_R_ATOL}), T_rel {truth['T_abs']:.3g} units (limit {CAL_T_ATOL})")
+    check(all(max(g["rmse"], g["K"], g["dist"]) <= CAL_CPU_RTOL
+              for k, g in gaps.items() if k != "stereo")
+          and gaps["stereo"]["rmse"] <= CAL_CPU_RTOL
+          and max(gaps["stereo"]["R"], gaps["stereo"]["T"]) <= CAL_STEREO_CPU_RTOL,
+          "the calibration on the card agrees with the port's CPU run")
+    check(max(truth["f_rel"]) <= CAL_K_RTOL and truth["R_abs"] <= CAL_R_ATOL
+          and truth["T_abs"] <= CAL_T_ATOL, "the calibration agrees with the truth")
+
+    # The rig on disk, and the headline block on it.
+    with tempfile.TemporaryDirectory() as tmp:
+        cams = {side: write_calibrated_rig(os.path.join(tmp, side), cal[side])
+                for side in ("cuda", "cpu")}
+    for side in ("cuda", "cpu"):
+        cam_r, c_r = cams[side], cal[side]
+        check(np.array_equal(cam_r["R"][0], np.eye(3)) and not cam_r["T"][0].any(),
+              "the origin camera at R = I, T = 0")
+        check(rel_gap(cam_r["K"][1], c_r["cameras"][1]["K"]) < 1e-15
+              and rel_gap(cam_r["R"][1], c_r["stereo"]["R"]) < 1e-15,
+              "the rig read back from its .dat files")
+    calibrated = ShardedPosePipeline(pipe.estimator, cams["cuda"], device=dev)
+    calibrated.run(blocks_u8[0])  # warm-up
+    torch.cuda.synchronize()
+    out, dt, launches = timed_blocks(calibrated, blocks_u8, N_BLOCKS)
+    block = blocks_u8[(N_BLOCKS - 1) % len(blocks_u8)]
+    ref = pipe.run(block)
+    cpu_rig = ShardedPosePipeline(pipe.estimator, cams["cpu"], device=dev).run(block)
+    same_2d = torch.equal(out["kpts_2d"].nan_to_num(7.0), ref["kpts_2d"].nan_to_num(7.0))
+    k3, k3_cpu = out["kpts_3d"], cpu_rig["kpts_3d"]
+    nan_same = torch.equal(k3.isnan(), k3_cpu.isnan())
+    fin = torch.isfinite(k3) & torch.isfinite(k3_cpu)
+    gap_3d = float((k3[fin] - k3_cpu[fin]).abs().max() / k3_cpu[fin].abs().max())
+    res["fps"] = T * N_BLOCKS / dt
+    res["kpts_3d_rel_gap"] = gap_3d
+    res["launches"]["calibrated_rig"] = launches
+    log(f"  headline block on the calibrated rig: {N_BLOCKS} blocks of ({T}, {C}, {H}, {W}, 3) in "
+        f"{dt:.3f} s -> {res['fps']:.1f} frames/s (phase 3 {phase3_fps:.1f}); launches {launches}; "
+        f"kpts_2d equal to phase 3's bit for bit: {same_2d}; kpts_3d against the CPU-calibrated "
+        f"rig {gap_3d:.3g} of the largest (limit {CAL_3D_RTOL}), NaN where NaN: {nan_same}, "
+        f"finite share {float(fin.float().mean()):.4f}")
+    check(launches["bottleneck"] == 4 * N_BLOCKS and launches["heatmap_decode"] == N_BLOCKS,
+          "the calibrated rig: 4 Bottleneck launches and 1 decode launch per block")
+    check(same_2d, "kpts_2d on the calibrated rig equal phase 3's bit for bit")
+    check(nan_same and gap_3d <= CAL_3D_RTOL, "kpts_3d on the card's and the CPU's rigs agree")
+    check_outputs(out, calibrated, T)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2825,8 +3095,13 @@ def main() -> int:
     mesh = run_mesh_phase(dev, pipe, blocks_u8, fps)
     mesh["seconds"] = time.perf_counter() - t22
     log(f"phase 22 took {mesh['seconds']:.1f} s")
+    # 23. The calibration chain on the card, and the headline block on its rig.
+    t23 = time.perf_counter()
+    calibration = run_calibration_phase(dev, pipe, blocks_u8, fps)
+    calibration["seconds"] = time.perf_counter() - t23
+    log(f"phase 23 took {calibration['seconds']:.1f} s")
 
-    # 23. Results.
+    # 24. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -2865,6 +3140,9 @@ def main() -> int:
         row["launches_phase_22"] = {
             what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
             for what, n in mesh["launches"].items()}
+        row["launches_phase_23"] = {
+            what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
+            for what, n in calibration["launches"].items()}
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]
@@ -2887,6 +3165,7 @@ def main() -> int:
                       "mesh_frames_per_s": mesh["mesh_frames_per_s"],
                       "multiclip_frames_per_s": mesh["multiclip_frames_per_s"],
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"},
+                      "calibration": {k: v for k, v in calibration.items() if k != "launches"},
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

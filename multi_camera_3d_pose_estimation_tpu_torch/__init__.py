@@ -16,7 +16,12 @@ with CUDA kernels for the HRNet stage-1 Bottleneck (`ops.bottleneck`,
 ``csrc/fused_decode.cu``) and the whole SwinBlock (`ops.swin_block`:
 ``csrc/swin_gemm.cu`` and ``csrc/window_attention.cu``); and the 3-D half
 in plain PyTorch: `ops.get_pose_3d`, `refine.linear_interpolation`, and
-the Adam/MLE refiners `refine.PoseRefiner` and `refine.ExtrinsicRefiner`.
+the Adam/MLE refiners `refine.PoseRefiner` and `refine.ExtrinsicRefiner`;
+the artifact chain (`io`, `cli`), training, MMPose checkpoints and the mesh
+paths (`parallel`); and the front end: calibration (`calib`: Zhang, PnP and
+stereo Levenberg-Marquardt on the card in float64), capture
+(`acquisition`), audio sync (`sync`) and `cli.configure_cameras` /
+`cli.record_and_estimate_pose`.
 """
 
 __version__ = "0.1.0"

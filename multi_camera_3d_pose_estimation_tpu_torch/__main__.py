@@ -3,6 +3,8 @@
     python -m multi_camera_3d_pose_estimation_tpu_torch <command> [args...]
 
 Commands:
+  record_and_estimate   calibrate -> record -> sync -> estimate
+                        (``--device cuda`` by default, ``--device cpu``)
   convert               load an MMPose .pth checkpoint (--out: the .npz format;
                         --verify: the per-stage drill; ``--device cuda`` by
                         default, ``--device cpu``)
@@ -11,8 +13,8 @@ Commands:
   train                 train a 2D model on COCO-format keypoints
                         (``--device cuda`` by default, ``--device cpu``)
 
-The JAX package's other commands (record_and_estimate, plot, doctor) are
-not ported yet: they print so and exit with code 2.
+The JAX package's other commands (plot, doctor) are not ported yet: they
+print so and exit with code 2.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ from __future__ import annotations
 import importlib
 import sys
 
-_COMMANDS = {"convert": "multi_camera_3d_pose_estimation_tpu_torch.cli.convert",
+_COMMANDS = {"record_and_estimate":
+             "multi_camera_3d_pose_estimation_tpu_torch.cli.record_and_estimate",
+             "convert": "multi_camera_3d_pose_estimation_tpu_torch.cli.convert",
              "refine": "multi_camera_3d_pose_estimation_tpu_torch.cli.refine",
              "train": "multi_camera_3d_pose_estimation_tpu_torch.cli.train"}
-_NOT_PORTED = ("record_and_estimate", "plot", "doctor")
+_NOT_PORTED = ("plot", "doctor")
 
 
 def main(argv=None):

@@ -28,6 +28,18 @@ HRNET_W32 = {"widths": (32, 64, 128, 256), "modules": (1, 1, 4, 3), "stem": 64}
 HRNET_W48 = {"widths": (48, 96, 192, 384), "modules": (1, 1, 4, 3), "stem": 64}
 
 
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
+    """``F.conv2d`` without bias in ``x``'s dtype.  On the CPU a bf16 conv
+    runs in f32 on the same bf16 values and rounds its output to bf16 (as
+    XLA does there): PyTorch's CPU bf16 convolution (oneDNN, in the 2.13 CPU
+    build) returns wrong values, NaN or inf for a stride-2 3x3 conv of a
+    width-2 map at batches of about 24 and more (test_tiny's stage 4 at
+    32x64)."""
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return F.conv2d(x.float(), w.float(), None, stride, padding).to(torch.bfloat16)
+    return F.conv2d(x, w, None, stride, padding)
+
+
 class ConvBN(nn.Module):
     """Conv (no bias, symmetric k//2 padding) -> BatchNorm -> ReLU?"""
 
@@ -40,8 +52,8 @@ class ConvBN(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        y = F.conv2d(x, self.Conv_0.weight.to(self.dtype), None, self.Conv_0.stride,
-                     self.Conv_0.padding)
+        y = conv2d(x, self.Conv_0.weight.to(self.dtype), self.Conv_0.stride,
+                   self.Conv_0.padding)
         y = batch_norm(y, self.BatchNorm_0, self.dtype)
         return torch.relu(y) if self.act else y
 

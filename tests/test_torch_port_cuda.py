@@ -703,3 +703,65 @@ def test_one_rank_nccl_pipeline_matches_one_device(card):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def test_calibration_float64_matches_cpu(card):
+    """`calibrate_camera` and `stereo_calibrate` in float64 on the card
+    against the CPU on the same noisy (0.2 px) corners: rmse, K and dist
+    within 1e-8 of their largest entry, the stereo R and T within 1e-7 (the
+    solvers' spread along the flat valley of ``tests/test_torch_calib.py``),
+    and the LM steps take no host sync (``set_sync_debug_mode("error")``)."""
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch import calib
+    from multi_camera_3d_pose_estimation_tpu_torch.calib import intrinsic, lm
+
+    def rot(v):
+        th = np.linalg.norm(v)
+        k = v / th
+        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+
+    def project(X, K, R, t):
+        x = X @ R.T + t
+        return x[:, :2] / x[:, 2:] * np.diag(K)[:2] + K[:2, 2]
+
+    def rel(a, b):
+        return np.abs(np.asarray(a) - b).max() / np.abs(b).max()
+
+    rng = np.random.default_rng(0)
+    K = np.array([[800.0, 0, 320.0], [0, 790.0, 240.0], [0, 0, 1]])
+    R_rel, t_rel = rot(np.array([0.05, 0.5, -0.02])), np.array([-25.0, 1.0, 6.0])
+    obj = calib.board_object_points(6, 9, 3.0)
+    views, i1 = [], []
+    for _ in range(8):
+        R = rot(rng.uniform(-0.3, 0.3, 3))
+        t = np.array([rng.uniform(-5, 5), rng.uniform(-4, 4), rng.uniform(50, 80)])
+        views.append(project(obj, K, R, t) + rng.normal(0, 0.2, (54, 2)))
+        i1.append(project(obj, K, R_rel @ R, R_rel @ t + t_rel) + rng.normal(0, 0.2, (54, 2)))
+    objs, i0, i1 = np.stack([obj] * 8), np.stack(views), np.stack(i1)
+
+    def strict_lm(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return lm.levenberg_marquardt(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            intrinsic.levenberg_marquardt = strict_lm
+        try:
+            cam = calib.calibrate_camera(objs, i0, device=dev)
+        finally:
+            intrinsic.levenberg_marquardt = lm.levenberg_marquardt
+        out[dev] = (cam, calib.stereo_calibrate(objs, i0, i1, cam[1], cam[2], cam[1], cam[2],
+                                                device=dev))
+    (cam_g, st_g), (cam_c, st_c) = out["cuda"], out["cpu"]
+    assert abs(cam_g[0] - cam_c[0]) <= 1e-8 * cam_c[0]
+    assert rel(cam_g[1], cam_c[1]) < 1e-8 and np.abs(cam_g[2] - cam_c[2]).max() < 1e-8
+    assert abs(st_g[0] - st_c[0]) <= 1e-8 * st_c[0]
+    assert rel(st_g[1], st_c[1]) < 1e-7 and rel(st_g[2], st_c[2]) < 1e-7
+    np.testing.assert_allclose(np.diag(cam_g[1])[:2], np.diag(K)[:2], rtol=0.02)

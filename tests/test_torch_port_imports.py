@@ -7,7 +7,9 @@ again, with ``chip_smoke.py``, where ``cv2``, ``yaml`` and ``tqdm`` fail too
 where a video, an image file, a YAML file or a progress bar is used); and
 the training modules and the train CLI by name, the same way; and the
 checkpoint modules (the ``.pth`` readers, the drill, the MMPose mirrors'
-copy and the convert CLI) by name; and the mesh modules by name.
+copy and the convert CLI) by name; and the mesh modules by name; and the
+front end (calibration, capture, sync, the configure and record_and_estimate
+CLIs) by name, with cv2 absent as on the card's machine.
 """
 
 import os
@@ -152,3 +154,42 @@ print(len(names))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) == 3
+
+
+def test_front_end_modules_import_without_jax_or_cv2():
+    """Calibration, capture, sync and the configure and record_and_estimate
+    CLIs, named one by one: no JAX, nothing of the JAX package, no cv2 (the
+    corner detector falls back to numpy), yaml or tqdm; ``calib`` exports the
+    JAX package's 18 names; ``record_and_estimate`` is a command, ``plot``
+    and ``doctor`` are not ported yet."""
+    code = """
+import importlib, sys
+for m in ("jax", "multi_camera_3d_pose_estimation_tpu", "cv2", "yaml", "tqdm"):
+    sys.modules[m] = None
+port = "multi_camera_3d_pose_estimation_tpu_torch"
+names = [f"{port}.calib"] + [f"{port}.calib.{m}" for m in (
+    "lm", "homography", "intrinsic", "pnp", "stereo", "manual", "checkerboard", "corners",
+    "verify")]
+names += [f"{port}.acquisition", f"{port}.acquisition.record", f"{port}.acquisition.live",
+          f"{port}.sync", f"{port}.sync.audio", f"{port}.sync.videos", f"{port}.cli.configure",
+          f"{port}.cli.record_and_estimate"]
+for name in names:
+    importlib.import_module(name)
+calib = sys.modules[f"{port}.calib"]
+assert len(calib.__all__) == 18 and all(hasattr(calib, n) for n in calib.__all__)
+assert sys.modules[f"{port}.calib.corners"]._cv2 is None
+from multi_camera_3d_pose_estimation_tpu_torch.__main__ import _COMMANDS, _NOT_PORTED
+assert "record_and_estimate" in _COMMANDS and "record_and_estimate" not in _NOT_PORTED
+assert _NOT_PORTED == ("plot", "doctor")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                and sys.modules[m] is not None)
+leaked += sorted(m for m in sys.modules if m.startswith("multi_camera_3d_pose_estimation_tpu.")
+                 and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == 18
