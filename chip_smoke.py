@@ -173,9 +173,27 @@ Phases (each synchronises the card; any failure exits non-zero):
    R = I, T = 0) and read back through ``io``; phase 3's headline block on
    the calibrated rig (4 Bottleneck and 1 decode launch per block, kpts_2d
    bit for bit phase 3's, kpts_3d against the CPU-calibrated rig, frames/s);
-24. one JSON line with every kernel (with its launches on phases 15-17, 19,
-   20, 21, 22 and 23), the script's wall time, the card's line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+24. the last modules: (a) `utils.trace` around 2 headline blocks
+   (the trace it wrote parsed: 4 stage-1 and 1 decode kernel per block by
+   name, as the wrappers count them; outputs bit for bit phase 3's;
+   frames/s under the profiler); (b) `utils.StepTimer` over the staged,
+   compute and drain stages of 4 blocks streamed through `io.stage_blocks`;
+   (c) `utils.profile_refinement_costs` on phase 14's scene in float32 and
+   float64; (d) `utils.convert_keypoint_definition` on the card for every
+   frame and camera of the headline block's kpts, to H36M and
+   MPI-INF-3DHP, bit for bit the CPU result; (e) RTMDet-m and YOLOX-s
+   ``.pth`` files written by the port's own MMDet mirrors, built through
+   `build_detector(checkpoint=)` in float32, their raw head outputs
+   against the mirror's forward on one seeded 640x640 batch (TF32 off);
+   (f) ``python -m multi_camera_3d_pose_estimation_tpu_torch doctor
+   --require_device`` as a subprocess: its report printed, the device row
+   ``cuda × 1`` with the card's name, the four kernel libraries, the gloo
+   row ok, and the exit code 0 exactly when every required row is ok (the
+   card's machine has no libav, so the media runtime row is printed as it
+   is);
+25. one JSON line with every kernel (with its launches on phases 15-17, 19,
+   20, 21, 22, 23 and 24), the script's wall time, the card's line, and the
+   final ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
 package beside it, it prints no result and exits 1.
@@ -186,6 +204,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2911,6 +2930,252 @@ def run_calibration_phase(dev, pipe, blocks_u8, phase3_fps: float) -> dict:
     return res
 
 
+# Phase 24: the last modules (profiling, keypoint conversion, the detector
+# mirrors, doctor).
+TRACE_BLOCKS = 2  # headline blocks under utils.trace
+TIMER_BLOCKS = 4  # headline blocks streamed under StepTimer
+MIRROR_SEED = 24  # the detector mirrors' randomize_ seed
+MIRROR_BATCH = 4  # 640x640 frames through each detector
+MIRROR_REL_TOL = 1e-4  # raw head outputs, float32 with TF32 off, of the largest output
+LIFT = ("Body3DH36MDataset", "Body3DMpiInf3dhpDataset")
+# The rows of doctor's report that decide its exit code (cv2 and yaml are optional).
+DOCTOR_REQUIRED = ("import torch", "import numpy", "native mediadec", "4-rank gloo CPU mesh",
+                   "device backend", "kernel libraries")
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """CUDA kernels in a Chrome trace written by `utils.trace`, by the
+    substrings `profile_block.py` files the port's kernels under."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {"bottleneck": sum("bottleneck_kernel" in n for n in names),
+            "heatmap_decode": sum("decode_kernel" in n for n in names),
+            "all_kernels": len(names)}
+
+
+def run_trace_and_timer(dev, pipe, blocks_u8, phase3_fps: float, res: dict) -> None:
+    """(a) `utils.trace` around TRACE_BLOCKS headline blocks, the trace
+    parsed for the two kernels; (b) `StepTimer` over TIMER_BLOCKS streamed
+    blocks."""
+    import tempfile
+
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.io import stage_blocks
+    from multi_camera_3d_pose_estimation_tpu_torch.utils import StepTimer, trace
+
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in counters.values():
+            fn.launches = 0
+        with trace(tmp) as prof:
+            t0 = time.perf_counter()
+            outs = [pipe.run(blocks_u8[i % len(blocks_u8)]) for i in range(TRACE_BLOCKS)]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        in_trace = trace_kernel_counts(prof.trace_path)
+        size = os.path.getsize(prof.trace_path)
+    res["launches"]["trace"] = launches
+    res["trace_fps"] = T * TRACE_BLOCKS / dt
+    res["trace_kernels"] = in_trace
+    refs = [pipe.run(blocks_u8[i % len(blocks_u8)]) for i in range(TRACE_BLOCKS)]
+    same = all(torch.equal(o[k].nan_to_num(7.0), r[k].nan_to_num(7.0))
+               for o, r in zip(outs, refs) for k in o)
+    log(f"  (a) trace: {TRACE_BLOCKS} blocks of ({T}, {C}, {H}, {W}, 3) under the profiler in "
+        f"{dt:.3f} s -> {res['trace_fps']:.1f} frames/s (phase 3, no profiler: "
+        f"{phase3_fps:.1f}); the trace file {size / 1e6:.2f} MB, {in_trace['all_kernels']} CUDA "
+        f"kernels, of them stage-1 {in_trace['bottleneck']} and decode "
+        f"{in_trace['heatmap_decode']}; the wrappers counted {launches}; outputs equal to "
+        f"phase 3's bit for bit: {same}")
+    check(in_trace["bottleneck"] == 4 * TRACE_BLOCKS
+          and in_trace["heatmap_decode"] == TRACE_BLOCKS,
+          "the trace holds 4 stage-1 and 1 decode kernel per block")
+    check(launches["bottleneck"] == 4 * TRACE_BLOCKS
+          and launches["heatmap_decode"] == TRACE_BLOCKS,
+          "the wrappers counted the kernels the trace holds")
+    check(same, "the traced blocks' outputs equal phase 3's bit for bit")
+
+    host = [b.cpu().numpy() for b in blocks_u8]
+    timer = StepTimer(block_jax=True)
+    for fn in counters.values():
+        fn.launches = 0
+    staged = stage_blocks(((host[i % len(host)], T) for i in range(TIMER_BLOCKS)), dev)
+    n_out = 0
+    while True:
+        with timer.stage("staged"):
+            item = next(staged, None)
+        if item is None:
+            break
+        with timer.stage("compute"):
+            out = pipe.run(item[0])
+        with timer.stage("drain"):
+            n_out += out["kpts_2d"].cpu().shape[0]
+    res["launches"]["step_timer"] = {k: fn.launches for k, fn in counters.items()}
+    log(f"  (b) StepTimer over {TIMER_BLOCKS} streamed blocks (synchronized per stage):")
+    report = timer.report()
+    res["step_timer"] = {k: {"s": timer.totals[k], "calls": timer.counts[k]} for k in timer.totals}
+    check(n_out == T * TIMER_BLOCKS and timer.counts["compute"] == TIMER_BLOCKS
+          and timer.counts["staged"] == TIMER_BLOCKS + 1 and "compute: " in report,
+          "StepTimer timed every stage of every block")
+    check(res["launches"]["step_timer"]["bottleneck"] == 4 * TIMER_BLOCKS,
+          "the streamed blocks launched the stage-1 kernel 4 times each")
+
+
+def run_cost_profile(dev, res: dict) -> None:
+    """(c) `profile_refinement_costs` on phase 14's scene, float32 and float64."""
+    import contextlib
+    import io
+
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.refine import PoseRefiner
+    from multi_camera_3d_pose_estimation_tpu_torch.utils import profile_refinement_costs
+
+    gauss, noisy, cams, _ = refine_scene()
+    res["cost_ms"] = {}
+    for dtype in (torch.float32, torch.float64):
+        ref = PoseRefiner(gauss, noisy, cams, body_lengths=REFINE_BODY, dtype=dtype, device=dev)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            times = profile_refinement_costs(ref, n_iters=50)
+        name = str(dtype).split(".")[-1]
+        res["cost_ms"][name] = {k: v * 1e3 for k, v in times.items()}
+        log(f"  (c) refinement costs, {name}, 400 x 17 x 4, ms per evaluation (synchronized): "
+            + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in times.items())
+            + f"; {buf.getvalue().strip()}")
+        check(list(times) == ["likelihood_cost", "smoothness_cost", "body_length_cost"]
+              and all(v > 0 for v in times.values()), f"every cost timed in {name}")
+
+
+def run_keypoint_conversion(pipe, blocks_u8, res: dict) -> None:
+    """(d) The headline block's kpts of every frame and camera converted on
+    the card and on the CPU (tensor and numpy paths): bit for bit."""
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.utils import convert_keypoint_definition
+
+    kpts = pipe.run(blocks_u8[0])["kpts_2d"]  # (T, 17, 3, C) on the card
+    per_cam = kpts.permute(0, 3, 1, 2).reshape(-1, 17, 3)  # (T*C, 17, 3)
+    host = per_cam.cpu().numpy()
+    n_same = n = 0
+    t0 = time.perf_counter()
+    for lift in LIFT:
+        for i in range(per_cam.shape[0]):
+            card = convert_keypoint_definition(per_cam[i], "TopDownCocoDataset", lift)
+            cpu = convert_keypoint_definition(host[i], "TopDownCocoDataset", lift)
+            cpu_t = convert_keypoint_definition(torch.from_numpy(host[i]), "TopDownCocoDataset",
+                                                lift)
+            a = card.cpu().numpy()
+            n += 1
+            n_same += (card.is_cuda and np.array_equal(a, cpu, equal_nan=True)
+                       and np.array_equal(cpu_t.numpy(), cpu, equal_nan=True))
+    dt = time.perf_counter() - t0
+    res["keypoint_conversion"] = {"conversions": n, "bit_for_bit": n_same, "seconds": dt}
+    log(f"  (d) keypoint conversion COCO -> H36M and MPI-INF-3DHP of {per_cam.shape[0]} frames x "
+        f"cameras on the card: {n_same} of {n} bit for bit the CPU result ({dt:.2f} s, "
+        f"CPU and card calls together)")
+    check(n_same == n == 2 * T * C, "keypoint conversion on the card is bit for bit the CPU's")
+
+
+def run_detector_mirrors(dev, res: dict) -> None:
+    """(e) RTMDet-m and YOLOX-s from ``.pth`` files written by the port's
+    MMDet mirrors, built by `build_detector(checkpoint=)` in float32: the
+    raw head outputs against the mirror's own forward (TF32 off)."""
+    import tempfile
+
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.models import registry
+    from multi_camera_3d_pose_estimation_tpu_torch.models.mirrors import rtmdet as mr
+    from multi_camera_3d_pose_estimation_tpu_torch.models.mirrors import yolox as my
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(MIRROR_SEED)
+    x = torch.rand(MIRROR_BATCH, 3, 640, 640, generator=gen).to(dev)
+    res["mirrors"] = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, cls, randomize_ in (("rtmdet_m", mr.MMDetRTMDet, mr.randomize_),
+                                          ("yolox_s", my.MMDetYOLOX, my.randomize_)):
+                mirror = cls(registry.DETECTOR_REGISTRY[name]["cfg"])
+                randomize_(mirror, seed=MIRROR_SEED)
+                path = os.path.join(tmp, f"{name}.pth")
+                torch.save({"state_dict": mirror.state_dict()}, path)
+                det = registry.build_detector(name, checkpoint=path, device=dev,
+                                              dtype=torch.float32)
+                mirror = mirror.to(dev).eval()
+                with torch.inference_mode():
+                    want = mirror.bbox_head(mirror.neck(mirror.backbone(x)))
+                    got = det.model(x)["raw"]
+                    wb, ws = mirror(x)
+                pairs = [(g, w.permute(0, 2, 3, 1)) for gl, wl in zip(got, want)
+                         for g, w in zip(gl, wl)]
+                scale = max(w.abs().max().item() for _, w in pairs)
+                err = max((g - w).abs().max().item() for g, w in pairs)
+                res["mirrors"][name] = {"max_abs_err": err, "scale": scale,
+                                        "outputs": len(pairs)}
+                log(f"  (e) {name} from the port's mirror (.pth {os.path.getsize(path) / 1e6:.1f} "
+                    f"MB): {len(pairs)} raw head outputs of ({MIRROR_BATCH}, 3, 640, 640), "
+                    f"max |built - mirror| {err:.4g} (tolerance {MIRROR_REL_TOL} x {scale:.4g}); "
+                    f"the mirror's decoded boxes {tuple(wb.shape)}, scores {tuple(ws.shape)}")
+                check(err <= MIRROR_REL_TOL * scale and bool(torch.isfinite(wb).all()),
+                      f"{name} built from the mirror's .pth agrees with the mirror")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def run_doctor(card: str, res: dict) -> None:
+    """(f) The doctor command in a subprocess; its rows against the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", PORT, "doctor", "--require_device",
+                           "--probe_timeout", "300"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+    dt = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"  (f) doctor --require_device: exit code {proc.returncode} in {dt:.1f} s")
+    for line in lines:
+        log(f"    {line}")
+    rows = {}  # name -> (status, detail), from "<name padded>  <status padded to 4>  <detail>"
+    for line in lines[:-1]:
+        m = re.match(r"^(.+?) {2,}(ok|FAIL) *(.*)$", line)
+        if m:
+            rows[m.group(1)] = (m.group(2), m.group(3))
+    res["doctor"] = {"exit_code": proc.returncode, "seconds": dt,
+                     "rows": {k: v[0] for k, v in rows.items()}}
+    name = torch.cuda.get_device_name(0)
+    dev_row = rows.get("device backend", ("", ""))
+    check(dev_row[0] == "ok" and dev_row[1] == f"cuda × 1 ({name})",
+          f"doctor's device row says cuda × 1 ({name})")
+    kern = rows.get("kernel libraries", ("", ""))
+    check(kern[0] == "ok" and kern[1].endswith(
+        "bottleneck,fused_decode,swin_gemm,window_attention"),
+        "doctor's kernel row lists the four libraries built and loaded")
+    check(rows.get("4-rank gloo CPU mesh", ("",))[0] == "ok", "doctor's gloo row is ok")
+    all_ok = all(rows.get(r, ("FAIL",))[0] == "ok" for r in DOCTOR_REQUIRED)
+    check((proc.returncode == 0) == all_ok and proc.returncode in (0, 1)
+          and lines[-1] == f"doctor: {'healthy' if all_ok else 'PROBLEMS FOUND'}",
+          "doctor's exit code is 0 exactly when every required row is ok")
+    import importlib.util
+
+    log(f"  doctor on this machine ({card}): required rows ok: {all_ok}; media runtime "
+        f"{rows.get('native mediadec', ('?', ''))[0]}; matplotlib importable: "
+        f"{importlib.util.find_spec('matplotlib') is not None}")
+
+
+def run_last_modules_phase(dev, pipe, blocks_u8, phase3_fps: float, card: str) -> dict:
+    """Phase 24: (a)-(f) of the docstring."""
+    res = {"launches": {}}
+    log("phase 24: the last modules (profiling, keypoint conversion, detector mirrors, doctor)")
+    run_trace_and_timer(dev, pipe, blocks_u8, phase3_fps, res)
+    run_cost_profile(dev, res)
+    run_keypoint_conversion(pipe, blocks_u8, res)
+    run_detector_mirrors(dev, res)
+    run_doctor(card, res)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3100,8 +3365,14 @@ def main() -> int:
     calibration = run_calibration_phase(dev, pipe, blocks_u8, fps)
     calibration["seconds"] = time.perf_counter() - t23
     log(f"phase 23 took {calibration['seconds']:.1f} s")
+    # 24. The last modules: trace, StepTimer, cost profile, keypoint conversion,
+    # the detector mirrors, doctor.
+    t24 = time.perf_counter()
+    last = run_last_modules_phase(dev, pipe, blocks_u8, fps, card)
+    last["seconds"] = time.perf_counter() - t24
+    log(f"phase 24 took {last['seconds']:.1f} s")
 
-    # 24. Results.
+    # 25. Results.
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     kernels = [
         {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
@@ -3143,6 +3414,9 @@ def main() -> int:
         row["launches_phase_23"] = {
             what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
             for what, n in calibration["launches"].items()}
+        row["launches_phase_24"] = {
+            what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
+            for what, n in last["launches"].items()}
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]
@@ -3166,6 +3440,7 @@ def main() -> int:
                       "multiclip_frames_per_s": mesh["multiclip_frames_per_s"],
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"},
                       "calibration": {k: v for k, v in calibration.items() if k != "launches"},
+                      "last_modules": {k: v for k, v in last.items() if k != "launches"},
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,7 @@ takes ``device=`` and defaults to ``"cuda"``; the CPU is used only when the
 caller asks for it, and there each hand-written kernel runs as its plain
 PyTorch version.
 
-Ported so far: the top-down 2D + 3D block pipeline for the HRNet and Swin
+Ported: the top-down 2D + 3D block pipeline for the HRNet and Swin
 heatmap families (top-2 or robust n-view DLT, flip-TTA, the DARK decode)
 and the RTMPose SimCC family, behind the person detectors (CenterNet,
 RTMDet, YOLOX; top-1 or consistent selection) in plain PyTorch,
@@ -21,7 +21,11 @@ the artifact chain (`io`, `cli`), training, MMPose checkpoints and the mesh
 paths (`parallel`); and the front end: calibration (`calib`: Zhang, PnP and
 stereo Levenberg-Marquardt on the card in float64), capture
 (`acquisition`), audio sync (`sync`) and `cli.configure_cameras` /
-`cli.record_and_estimate_pose`.
+`cli.record_and_estimate_pose`; and the host tools: the libav media
+runtime (`native`), profiling and keypoint conversion (`utils`), the plots
+and the live preview (`viz`, matplotlib), and the ``plot`` and ``doctor``
+commands.  Every module and command of the JAX package has its
+counterpart here.
 """
 
 __version__ = "0.1.0"

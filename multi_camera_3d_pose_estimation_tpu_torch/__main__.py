@@ -2,19 +2,20 @@
 
     python -m multi_camera_3d_pose_estimation_tpu_torch <command> [args...]
 
-Commands:
+Commands (the JAX package's six):
   record_and_estimate   calibrate -> record -> sync -> estimate
+                        (``--device cuda`` by default, ``--device cpu``)
+  refine                linear interpolation / SGD refinement CLI
+                        (``--device cuda`` by default, ``--device cpu``)
+  plot                  heatmap / 3D-pose animations (host; matplotlib)
+  train                 train a 2D model on COCO-format keypoints
                         (``--device cuda`` by default, ``--device cpu``)
   convert               load an MMPose .pth checkpoint (--out: the .npz format;
                         --verify: the per-stage drill; ``--device cuda`` by
                         default, ``--device cpu``)
-  refine                linear interpolation / SGD refinement CLI
-                        (``--device cuda`` by default, ``--device cpu``)
-  train                 train a 2D model on COCO-format keypoints
-                        (``--device cuda`` by default, ``--device cpu``)
-
-The JAX package's other commands (plot, doctor) are not ported yet: they
-print so and exit with code 2.
+  doctor                environment health check (imports, the libav media
+                        runtime, a 4-rank gloo CPU mesh, a bounded probe of the
+                        card and its kernel libraries)
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ import sys
 
 _COMMANDS = {"record_and_estimate":
              "multi_camera_3d_pose_estimation_tpu_torch.cli.record_and_estimate",
-             "convert": "multi_camera_3d_pose_estimation_tpu_torch.cli.convert",
              "refine": "multi_camera_3d_pose_estimation_tpu_torch.cli.refine",
-             "train": "multi_camera_3d_pose_estimation_tpu_torch.cli.train"}
-_NOT_PORTED = ("plot", "doctor")
+             "plot": "multi_camera_3d_pose_estimation_tpu_torch.cli.plot",
+             "train": "multi_camera_3d_pose_estimation_tpu_torch.cli.train",
+             "convert": "multi_camera_3d_pose_estimation_tpu_torch.cli.convert",
+             "doctor": "multi_camera_3d_pose_estimation_tpu_torch.cli.doctor"}
 
 
 def main(argv=None):
@@ -37,8 +39,7 @@ def main(argv=None):
         raise SystemExit(0)
     if argv[0] not in _COMMANDS:
         print(__doc__)
-        what = "is not ported yet" if argv[0] in _NOT_PORTED else "is not a command"
-        print(f"error: {argv[0]!r} {what}", file=sys.stderr)
+        print(f"error: unknown command {argv[0]!r}", file=sys.stderr)
         raise SystemExit(2)
     importlib.import_module(_COMMANDS[argv[0]]).main(argv[1:])
 

@@ -214,15 +214,17 @@ def estimate_pose_from_video(
       the same arguments and returns the same arrays (``block_size`` a
       multiple of the mesh size), and the mesh's first rank writes the
       files.  None runs on one device.
-    - The live preview (``live_preview_dir``, ``live_preview_show``) is not
-      ported: it raises.
+    - ``live_preview_dir`` / ``live_preview_show``: the reference's live
+      2D overlay (pose_estimation.py:125,145-149), headless first: every
+      8th frame of each camera with its skeleton drawn by cv2, written as
+      ``preview_<frame>_cam<c>.jpg`` and/or shown in a window
+      (`viz.make_preview_writer`, called as each block's results are read;
+      with a mesh, by its first rank only).  Needs cv2 and matplotlib.
 
     Returns ``(kpts_2d, heatmaps_2d, kpts_3d)`` and writes the ``.npy``
     artifacts into ``save_dir`` (default: beside the recordings).
     """
     check_mesh(mesh, device)
-    if live_preview_dir or live_preview_show:
-        raise NotImplementedError("the live preview is not ported yet (ROADMAP Queue A item 11)")
     save_dir = save_dir or os.path.dirname(str(recording_paths[0]))
     k2_path, hm_path, k3_path = (os.path.join(save_dir, f"{k}.npy") for k in _KEYS)
     intr, extr = _param_dirs(project_dir, intrinsic_params_dir, extrinsic_params_dir)
@@ -247,8 +249,13 @@ def estimate_pose_from_video(
         conf_threshold=conf_threshold, num_joints=num_joints, estimator_kwargs=estimator_kwargs,
         intrinsic_params_dir=intr, extrinsic_params_dir=extr, triangulation=triangulation,
         mesh=mesh, device=device)
+    on_block = None
+    if (live_preview_dir or live_preview_show) and (mesh is None or is_first_rank(mesh)):
+        from ..viz import make_preview_writer  # matplotlib: imported only when asked for
+
+        on_block = make_preview_writer(save_dir=live_preview_dir, show=live_preview_show)
     kpts_2d, heatmaps, kpts_3d = run_pipeline_on_videos(pipeline, recording_paths,
-                                                        block_size=block_size)
+                                                        block_size=block_size, on_block=on_block)
     _save(mesh, [(k2_path, kpts_2d), (hm_path, heatmaps), (k3_path, kpts_3d)])
     return kpts_2d, heatmaps, kpts_3d
 

@@ -1,6 +1,6 @@
 """Audio-based multi-camera video synchronization (host glue), as the JAX
-package's ``sync/``: sidecar PCM ``.wav`` audio (the libav decoder for audio
-inside containers is not ported, ROADMAP Queue A item 12)."""
+package's ``sync/``: audio decoded from the containers by the port's libav
+library, or read from sidecar PCM ``.wav`` files."""
 
 from .audio import decode_audio, get_loudest_point
 from .videos import (

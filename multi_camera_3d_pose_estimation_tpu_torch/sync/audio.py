@@ -2,28 +2,40 @@
 
 Counterpart of the JAX package's ``sync/audio.py`` (the reference's
 moviepy WAV extraction + librosa ``argmax(abs(y))``,
-synchronize_videos.py:12-21, :203-205).  The JAX package decodes audio
-inside video containers with its native libav decoder, which the port does
-not have yet (ROADMAP Queue A item 12); the port reads plain PCM ``.wav``
-files with the standard library's ``wave``, the JAX package's fallback, and
-raises the same `RuntimeError` for anything else.
+synchronize_videos.py:12-21, :203-205): the first audio stream of a
+container decoded to mono float PCM by the port's libav library
+(`native.load_mediadec`, no temporary WAV files), with the standard
+library's ``wave`` reading plain PCM ``.wav`` files where the library is
+unavailable.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import wave
 
 import numpy as np
 
+from ..native import load_mediadec
+
 __all__ = ["decode_audio", "get_loudest_point"]
 
 
 def decode_audio(path: str, max_seconds: float = 120.0):
-    """Decode a PCM ``.wav`` file to mono float32; returns (y, sr)."""
+    """Decode the first audio stream to mono float32; returns (y, sr)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    if path.lower().endswith(".wav"):
+    lib = load_mediadec()
+    if lib is not None:
+        max_samples = int(max_seconds * 192000)
+        buf = np.empty(max_samples, np.float32)
+        sr = ctypes.c_int()
+        n = lib.md_read_audio(path.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                              max_samples, sr)
+        if n > 0:
+            return buf[:n].copy(), int(sr.value)
+    if path.lower().endswith(".wav"):  # the standard library: plain PCM WAV only
         with wave.open(path, "rb") as w:
             sr = w.getframerate()
             n = min(w.getnframes(), int(max_seconds * sr))
@@ -36,9 +48,8 @@ def decode_audio(path: str, max_seconds: float = 120.0):
                 y = y.reshape(-1, w.getnchannels()).mean(axis=1)
             return y, sr
     raise RuntimeError(
-        f"no audio decoder available for {path} (the port reads PCM .wav files only: "
-        f"audio inside a video container needs the native libav decoder, ROADMAP Queue A "
-        f"item 12; pass sidecar .wav files as audio_paths)"
+        f"no audio decoder available for {path} (native libmediadec failed "
+        f"to build and file is not a PCM .wav)"
     )
 
 

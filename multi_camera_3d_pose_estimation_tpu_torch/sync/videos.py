@@ -1,12 +1,13 @@
 """Multi-camera video synchronization by audio peak + fps-drift compensation.
 
 A copy of the JAX package's ``sync/videos.py`` over the port's
-`io.frames.VideoReader` (cv2): the reference's `synchronize_videos`
-(synchronize_videos.py:198-286), headless-first.
+`io.frames.VideoReader` (libav, else cv2): the reference's
+`synchronize_videos` (synchronize_videos.py:198-286), headless-first.
 
 - The loudest-sample time per video → sync frame index via that video's
-  fps (synchronize_videos.py:208); the audio comes from sidecar ``.wav``
-  files (``audio_paths``; `sync.audio`).
+  fps (synchronize_videos.py:208); the audio comes from each video's own
+  track (libav) or from sidecar ``.wav`` files (``audio_paths``;
+  `sync.audio`).
 - The interactive ±5-frame grid pick (:142-193) is the non-interactive
   ``adjusted_sync_frame_indices`` (the reference's own parameter, :198),
   or a ``frame_picker`` callback.

@@ -1,5 +1,8 @@
-"""Skeleton metadata of the port (its own copy of the JAX package's tables)."""
+"""Skeleton metadata, keypoint-schema conversion and profiling helpers of the
+port (its own copies of the JAX package's tables and rules)."""
 
+from .keypoint_convert import convert_keypoint_definition
+from .profiling import StepTimer, profile_refinement_costs, trace
 from .skeleton import (
     BODYPARTS,
     CONNECTIVITY_DICT,
@@ -20,4 +23,8 @@ __all__ = [
     "get_body_part_lengths",
     "body_length_edges",
     "change_origin",
+    "convert_keypoint_definition",
+    "StepTimer",
+    "trace",
+    "profile_refinement_costs",
 ]

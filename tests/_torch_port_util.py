@@ -109,13 +109,28 @@ def jax_mirror(family, cfg, input_size=(32, 64)):
     return mod.MMDetRTMDet(cfg), mod.randomize_
 
 
+def port_detector_mirror(family, cfg):
+    """The port's own MMDet mirror of ``family`` ("yolox" or "rtmdet") and
+    its ``randomize_``."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"multi_camera_3d_pose_estimation_tpu_torch.models.mirrors.{family}")
+    return (mod.MMDetYOLOX if family == "yolox" else mod.MMDetRTMDet)(cfg), mod.randomize_
+
+
 def write_pth(path, family, cfg, seed=0, edit=None, input_size=(32, 64)):
     """A random MMPose/MMDet ``{"state_dict": ...}`` checkpoint of ``family``
-    written by the JAX package's mirror (``randomize_(seed)``), the state
-    dict first passed to ``edit`` where given; returns ``str(path)``."""
+    written by a mirror (``randomize_(seed)``): the JAX package's for the
+    pose models, the port's own for the detectors (which hold them equal to
+    the JAX package's, tests/test_torch_port_checkpoint_verify.py); the
+    state dict first passed to ``edit`` where given; returns ``str(path)``."""
     import torch
 
-    mirror, randomize_ = jax_mirror(family, cfg, input_size)
+    if family in ("yolox", "rtmdet"):
+        mirror, randomize_ = port_detector_mirror(family, cfg)
+    else:
+        mirror, randomize_ = jax_mirror(family, cfg, input_size)
     randomize_(mirror, seed=seed)
     state = dict(mirror.state_dict())
     if edit is not None:

@@ -1,8 +1,10 @@
-"""The port's checkpoint drill and its copy of the MMPose mirrors.
+"""The port's checkpoint drill and its copy of the MMPose/MMDet mirrors.
 
-- The mirrors' copy (``models/mirrors``): for the same config, the JAX
-  package's mirror's ``state_dict`` keys, order and shapes, and, with the
-  same ``randomize_`` seed, the same forward bit for bit (float32, CPU).
+- The mirrors' copy (``models/mirrors``, the three pose families and the
+  RTMDet and YOLOX detectors): for the same config, the JAX package's
+  mirror's ``state_dict`` keys, order and shapes, and, with the same
+  ``randomize_`` seed, the same values and forward bit for bit (float32,
+  CPU; the detectors' decoded boxes and scores).
 - The drill (`models.checkpoint_verify`) on the CPU, as
   ``tests/test_torch_parity.py`` holds the JAX drill: it passes at every
   stage on a random checkpoint of each family (at the JAX drill's 2e-3,
@@ -20,22 +22,24 @@ import torch
 from multi_camera_3d_pose_estimation_tpu_torch.models import checkpoint_verify as pcv_verify
 from multi_camera_3d_pose_estimation_tpu_torch.models import convert
 
-from tests._torch_port_util import SMALL_PTH, jax_mirror, write_pth
+from tests._torch_port_util import SMALL_PTH, jax_mirror, port_detector_mirror, write_pth
 
 POSE = ["hrnet", "swin", "rtmpose"]
 CLASSES = {"hrnet": "MMPoseHRNet", "swin": "MMPoseSwin", "rtmpose": "MMPoseRTMPose"}
 
 
 def _port_mirror(family, cfg):
+    if family in ("yolox", "rtmdet"):
+        return port_detector_mirror(family, cfg)
     mod = importlib.import_module(
         f"multi_camera_3d_pose_estimation_tpu_torch.models.mirrors.{family}")
     kw = {"input_size": (32, 64)} if family == "rtmpose" else {}
     return getattr(mod, CLASSES[family])(cfg, num_joints=17, **kw), mod.randomize_
 
 
-@pytest.mark.parametrize("family", POSE)
+@pytest.mark.parametrize("family", POSE + ["rtmdet", "yolox"])
 def test_mirror_copy_equals_the_jax_mirror(family):
-    cfg = SMALL_PTH[family][0]
+    cfg, shape = SMALL_PTH[family]
     jm, jrand = jax_mirror(family, cfg)
     pm, prand = _port_mirror(family, cfg)
     jrand(jm, seed=11)
@@ -43,11 +47,11 @@ def test_mirror_copy_equals_the_jax_mirror(family):
     a, b = jm.state_dict(), pm.state_dict()
     assert list(a) == list(b)
     assert all(a[k].shape == b[k].shape and torch.equal(a[k], b[k]) for k in a)
-    x = np.random.default_rng(0).uniform(size=(2, 3, 64, 32)).astype(np.float32)
+    x = np.random.default_rng(0).uniform(size=(2, 3) + shape[1:3]).astype(np.float32)
     with torch.no_grad():
         ja, pa = jm.eval()(torch.from_numpy(x)), pm.eval()(torch.from_numpy(x))
-    ja, pa = (ja, pa) if family == "rtmpose" else ((ja,), (pa,))
-    assert all(torch.equal(u, v) for u, v in zip(ja, pa))
+    ja, pa = (ja, pa) if family not in POSE[:2] else ((ja,), (pa,))
+    assert len(ja) == len(pa) and all(torch.equal(u, v) for u, v in zip(ja, pa))
 
 
 @pytest.mark.parametrize("family", POSE)

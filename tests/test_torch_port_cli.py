@@ -178,9 +178,17 @@ def test_estimate_reuses_artifacts(project, estimated):
                       device="cpu")
     for a, b in zip(redo, estimated["port"]):  # another block size, the same frames
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        p_estimate(paths, project_dir=str(root), save_dir=save, live_preview_dir="x",
-                   device="cpu")
+    # The live preview: the same artifacts, and the first frame of each block
+    # of 3 (every 8th frame of a block) drawn per camera as a JPEG.
+    preview = root / "full_frame" / "preview"
+    shown = p_estimate(paths, project_dir=str(root), pose_estimation_model="test_tiny",
+                       checkpoint=ckpt, block_size=BLOCK, save_dir=save, overwrite=True,
+                       live_preview_dir=str(preview), device="cpu")
+    for a, b in zip(shown, estimated["port"]):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(os.listdir(preview)) == [f"preview_{t:06d}_cam{c}.jpg" for t in (0, 3, 6)
+                                           for c in (0, 1)]
+    assert cv2.imread(str(preview / "preview_000003_cam1.jpg")).shape == (H, W, 3)
     with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh of parallel.make_mesh only
         p_estimate(paths, project_dir=str(root), save_dir=save, mesh=object(), device="cpu")
 
@@ -303,8 +311,10 @@ def test_refine_backfills_from_the_recording_log(tmp_path, rng, monkeypatch, cap
         "--intrinsic_params_dir", str(project / "intrinsic_camera_parameters"), *common]))
     np.testing.assert_array_equal(backfilled, explicit["SGD"])
     capsys.readouterr()
-    for argv in (["plot"], ["nope"]):
-        with pytest.raises(SystemExit) as exc:
-            port_main.main(argv)
-        assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    # plot dispatches to cli.plot (its own arguments: --recording_log is missing here)
+    with pytest.raises(FileNotFoundError):
+        port_main.main(["plot", "--recording_log", str(run / "missing.yaml")])
+    with pytest.raises(SystemExit) as exc:
+        port_main.main(["nope"])
+    assert exc.value.code == 2
+    assert "unknown command 'nope'" in capsys.readouterr().err

@@ -765,3 +765,38 @@ def test_calibration_float64_matches_cpu(card):
     assert abs(st_g[0] - st_c[0]) <= 1e-8 * st_c[0]
     assert rel(st_g[1], st_c[1]) < 1e-7 and rel(st_g[2], st_c[2]) < 1e-7
     np.testing.assert_allclose(np.diag(cam_g[1])[:2], np.diag(K)[:2], rtol=0.02)
+
+
+def test_trace_counts_kernels_and_keypoint_conversion_on_the_card(card, tmp_path):
+    """`utils.trace` around one HRNet-W32 block (T=16 x C=2 of 256x256, the
+    stage-1 and decode kernels on): the Chrome trace it writes holds 4
+    stage-1 and 1 decode kernel by name, as the wrappers count them; and
+    `convert_keypoint_definition` on CUDA tensors of that block's keypoints
+    is bit for bit the CPU result, to H36M and to MPI-INF-3DHP."""
+    import json
+
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
+    from multi_camera_3d_pose_estimation_tpu_torch.utils import convert_keypoint_definition, trace
+
+    shape = (16, 2, 256, 256, 3)
+    pipe = build_pipeline(HRNET_W32, (192, 256), shape, device=card, seed=0)
+    frames = torch.from_numpy(np.random.default_rng(0).integers(0, 256, shape,
+                                                                dtype=np.uint8)).to(card)
+    pipe.run(frames)  # warm-up
+    bn.fused_bottleneck_block.launches = fd.heatmap_decode_raw.launches = 0
+    with trace(str(tmp_path)) as prof:
+        out = pipe.run(frames)
+    assert (bn.fused_bottleneck_block.launches, fd.heatmap_decode_raw.launches) == (4, 1)
+    with open(prof.trace_path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    assert sum("bottleneck_kernel" in n for n in kernels) == 4
+    assert sum("decode_kernel" in n for n in kernels) == 1
+    per_cam = out["kpts_2d"].permute(0, 3, 1, 2).reshape(-1, 17, 3)
+    for lift in ("Body3DH36MDataset", "Body3DMpiInf3dhpDataset"):
+        for k in per_cam:
+            got = convert_keypoint_definition(k, "TopDownCocoDataset", lift)
+            want = convert_keypoint_definition(k.cpu().numpy(), "TopDownCocoDataset", lift)
+            assert got.is_cuda and np.array_equal(got.cpu().numpy(), want, equal_nan=True)

@@ -2,10 +2,11 @@
 
 Videos are mp4v files written with OpenCV (as ``tests/test_media.py``
 writes them), two cameras of 10 random frames, read in blocks of 4 so that
-the last block holds 2 frames and is zero-padded.  The port decodes with
-OpenCV; the JAX reader is held both on its OpenCV path (its libav decoder
-switched off) and as it runs by default (libav where the native library is
-built, else OpenCV).
+the last block holds 2 frames and is zero-padded.  The port decodes as it
+runs by default (its own libav library where it builds, else OpenCV); the
+JAX reader is held both on its OpenCV path (its libav decoder switched off)
+and as it runs by default.  ``tests/test_torch_native.py`` holds the two
+libav paths against each other.
 """
 
 import os

@@ -9,7 +9,10 @@ the training modules and the train CLI by name, the same way; and the
 checkpoint modules (the ``.pth`` readers, the drill, the MMPose mirrors'
 copy and the convert CLI) by name; and the mesh modules by name; and the
 front end (calibration, capture, sync, the configure and record_and_estimate
-CLIs) by name, with cv2 absent as on the card's machine.
+CLIs) by name, with cv2 absent as on the card's machine; and the modules the
+card's machine runs without matplotlib (doctor, profiling, keypoint
+conversion, the media runtime's loader, the estimate CLI) by name, with
+matplotlib and cv2 absent.
 """
 
 import os
@@ -111,8 +114,8 @@ names = [f"{port}.models.{m}" for m in ("convert", "checkpoint_verify", "registr
 names += [f"{port}.cli.convert"]
 for name in names:
     importlib.import_module(name)
-from multi_camera_3d_pose_estimation_tpu_torch.__main__ import _COMMANDS, _NOT_PORTED
-assert "convert" in _COMMANDS and "convert" not in _NOT_PORTED
+from multi_camera_3d_pose_estimation_tpu_torch.__main__ import _COMMANDS
+assert "convert" in _COMMANDS
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                 and sys.modules[m] is not None)
 leaked += sorted(m for m in sys.modules if m.startswith("multi_camera_3d_pose_estimation_tpu.")
@@ -160,8 +163,8 @@ def test_front_end_modules_import_without_jax_or_cv2():
     """Calibration, capture, sync and the configure and record_and_estimate
     CLIs, named one by one: no JAX, nothing of the JAX package, no cv2 (the
     corner detector falls back to numpy), yaml or tqdm; ``calib`` exports the
-    JAX package's 18 names; ``record_and_estimate`` is a command, ``plot``
-    and ``doctor`` are not ported yet."""
+    JAX package's 18 names; the dispatcher has the JAX package's six
+    commands and no list of commands left to port."""
     code = """
 import importlib, sys
 for m in ("jax", "multi_camera_3d_pose_estimation_tpu", "cv2", "yaml", "tqdm"):
@@ -178,9 +181,10 @@ for name in names:
 calib = sys.modules[f"{port}.calib"]
 assert len(calib.__all__) == 18 and all(hasattr(calib, n) for n in calib.__all__)
 assert sys.modules[f"{port}.calib.corners"]._cv2 is None
-from multi_camera_3d_pose_estimation_tpu_torch.__main__ import _COMMANDS, _NOT_PORTED
-assert "record_and_estimate" in _COMMANDS and "record_and_estimate" not in _NOT_PORTED
-assert _NOT_PORTED == ("plot", "doctor")
+from multi_camera_3d_pose_estimation_tpu_torch import __main__ as commands
+assert "record_and_estimate" in commands._COMMANDS and not hasattr(commands, "_NOT_PORTED")
+assert sorted(commands._COMMANDS) == ["convert", "doctor", "plot", "record_and_estimate",
+                                      "refine", "train"]  # the JAX package's six
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                 and sys.modules[m] is not None)
 leaked += sorted(m for m in sys.modules if m.startswith("multi_camera_3d_pose_estimation_tpu.")
@@ -193,3 +197,35 @@ print(len(names))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) == 18
+
+
+def test_card_side_modules_import_without_matplotlib_or_cv2():
+    """The card's machine has neither matplotlib nor cv2: doctor, profiling,
+    keypoint conversion, the media runtime's loader and the estimate CLI
+    import without them (and without JAX or the JAX package), and none of
+    them imports ``viz``; the loader builds nothing on import."""
+    code = """
+import importlib, sys
+for m in ("jax", "multi_camera_3d_pose_estimation_tpu", "cv2", "matplotlib"):
+    sys.modules[m] = None
+port = "multi_camera_3d_pose_estimation_tpu_torch"
+names = [f"{port}.cli.doctor", f"{port}.utils.profiling", f"{port}.utils.keypoint_convert",
+         f"{port}.utils", f"{port}.native", f"{port}.cli.estimate", f"{port}.cli"]
+for name in names:
+    importlib.import_module(name)
+utils = sys.modules[f"{port}.utils"]
+assert len(utils.__all__) == 12 and all(hasattr(utils, n) for n in utils.__all__)
+assert sys.modules[f"{port}.native"]._tried is False  # nothing built or loaded on import
+leaked = sorted(m for m in sys.modules if (m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2",
+                                                               "matplotlib")
+                                           or m.startswith(f"{port}.viz")
+                                           or m.startswith("multi_camera_3d_pose_estimation_tpu."))
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == 7

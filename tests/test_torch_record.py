@@ -20,8 +20,9 @@ Both packages run on the same inputs made from numpy seeds; the port with
 - `compute_sync_frame_indices` and `synchronize_videos` with sidecar
   ``.wav`` files (``tests/test_media.py``'s fixtures): indices, fps and
   frames bit for bit, and the ``*_synced.mp4`` files' frames; the samples
-  bit for bit against the JAX package's standard-library ``.wav`` path
-  (its libav decoder scales int16 by 1/32768, not 1/32767: within 1e-4).
+  bit for bit, through both packages' libav decoders and through both
+  standard-library ``.wav`` paths (libav scales int16 by 1/32768, ``wave``
+  by 1/32767); a video without audio raises the same error in both.
 - `record_and_estimate_pose` on prerecorded clips with manual extrinsics,
   from one JAX ``test_tiny`` ``.npz`` checkpoint: the artifacts held as
   ``tests/test_torch_port_cli.py`` holds the estimate CLI, the
@@ -256,6 +257,7 @@ def test_cpu_bf16_conv_does_not_depend_on_the_batch():
 def test_audio_sync_matches_jax(tmp_path, monkeypatch):
     """Two 20-frame videos whose sidecar claps are 4 frames apart."""
     import multi_camera_3d_pose_estimation_tpu.sync.audio as jaudio
+    import multi_camera_3d_pose_estimation_tpu_torch.sync.audio as paudio
 
     fps = 10.0
     out = {}
@@ -281,14 +283,19 @@ def test_audio_sync_matches_jax(tmp_path, monkeypatch):
     np.testing.assert_array_equal(p[3], j[3])
     for a, b in zip(p[4], j[4]):
         np.testing.assert_array_equal(a, b)
-    np.testing.assert_allclose(p[5][0], j[5][0], rtol=0, atol=1e-4)  # libav's scale
+    np.testing.assert_array_equal(p[5][0], j[5][0])  # both through libav
     assert p[5][1] == j[5][1] and p[6] == j[6] == 0.6
-    monkeypatch.setattr(jaudio, "load_mediadec", lambda: None)  # JAX's .wav path
+    # The standard library's .wav path, in both packages.
+    monkeypatch.setattr(jaudio, "load_mediadec", lambda: None)
+    monkeypatch.setattr(paudio, "load_mediadec", lambda: None)
     wav = str(tmp_path / "port" / "a0.wav")
     for a, b in zip(psync.decode_audio(wav, max_seconds=1.5), jsync.decode_audio(wav, 1.5)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(RuntimeError, match="Queue A item 12"):
-        psync.decode_audio(write_test_video(tmp_path / "no_wav.mp4", n_frames=2))
+    monkeypatch.undo()
+    no_audio = write_test_video(tmp_path / "no_wav.mp4", n_frames=2)
+    for sync in (psync, jsync):  # libav finds no audio stream, and it is not a .wav
+        with pytest.raises(RuntimeError, match="no audio decoder available"):
+            sync.decode_audio(no_audio)
 
 
 # -------------------------------------------------------- record_and_estimate
