@@ -149,7 +149,9 @@ Phases (each synchronises the card; any failure exits non-zero):
    `init_distributed` on a free local port (NCCL) and the headline block
    through ``ShardedPosePipeline(mesh=make_mesh(1))`` (4 Bottleneck and 1
    decode launch per block, outputs equal to phase 3's ``mesh=None`` run bit
-   for bit, frames/s); BASELINE config 5 (`bench.py::bench_multiclip`: 8
+   for bit, frames/s); phase 6's Swin-B block the same way (96 swin_gemm,
+   24 attention and 1 decode launch, bit for bit phase 6's pipeline);
+   BASELINE config 5 (`bench.py::bench_multiclip`: 8
    clips x T=32 x 4 cameras of 256x256, 1024 crops per block) through
    `run_clips_batched` on ``make_clip_mesh(1, 1)``, a warm-up and 3 timed
    blocks (4 + 1 launches each), split equal to unsplit and to ``mesh=None``,
@@ -191,9 +193,24 @@ Phases (each synchronises the card; any failure exits non-zero):
    row ok, and the exit code 0 exactly when every required row is ok (the
    card's machine has no libav, so the media runtime row is printed as it
    is);
-25. one JSON line with every kernel (with its launches on phases 15-17, 19,
-   20, 21, 22, 23 and 24), the script's wall time, the card's line, and the
-   final ``{"ok": true, "device": {...}}`` line.
+25. the registry's other two heatmap models at full width, random weights
+   from a seed: HRNet-W48 at 288x384 input on the headline blocks (T=256 x
+   C=2 of 256x256, 512 crops; a warm-up block, then 3 counted and timed
+   blocks: 4 Bottleneck and 1 decode launch per block), its stage-1 chain
+   (4 bf16 steps), block 0 and an identity block at 96x72 (each with its
+   bound) and its decode on the block's own 96x72 maps against their plain
+   versions, as in phase 4, and a small W48-width pipeline card against
+   CPU; then Swin-L (T=128 x C=2) chained and with ``MC3D_SWIN_FIXED=1``
+   (96 swin_gemm, 48 LayerNorm row-kernel, 24 attention and 1 decode launch
+   per block), each stage's block, its four products and its attention
+   (and, fixed, each whole stage) against their plain versions, as in
+   phases 7 and 10; frames/s and ``torch.cuda.max_memory_allocated`` of
+   each path and every kernel's time against its bound, each line beside
+   the card's name and power limit;
+26. one JSON line with every kernel (the phase-25 rows named ``*_w48`` and
+   ``*_swin_l``; the others with their launches on phases 15-17 and 19-25),
+   the script's wall time, the card's line, and the final
+   ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
 package beside it, it prints no result and exits 1.
@@ -201,6 +218,7 @@ package beside it, it prints no result and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -340,6 +358,9 @@ def chain_bound(x, blocks, out):
 
 SMALL = {  # (config, input (w, h)) of the small card-vs-CPU pipelines
     "hrnet": ({"widths": (8, 16, 32, 64), "modules": (1, 1, 1, 1), "stem": 16}, (32, 64)),
+    # HRNet-W48's widths and its 64-wide stage 1, one module per stage.
+    "hrnet_w48": ({"widths": (48, 96, 192, 384), "modules": (1, 1, 1, 1), "stem": 64},
+                  (96, 128)),
     "swin": ({"embed": 64, "depths": (2, 2), "heads": (2, 4), "window": 7, "mlp_ratio": 4,
               "deconv": (32,)}, (64, 96)),
     "rtmpose": ({"widen": 0.125, "deepen": 0.167, "embed": 32}, (64, 96)),
@@ -364,14 +385,16 @@ def compare_small(a: dict, b: dict, what: str) -> None:
           f"{what} on the card agrees with the plain CPU path")
 
 
-def check_small_pipeline(gen, family: str, label: str = "", cams: int = 2, **build_kw) -> None:
+def check_small_pipeline(gen, family: str, label: str = "", cams: int = 2, small: str = "",
+                         **build_kw) -> None:
     """The whole pipeline on the card against the plain CPU path (the one the
-    CPU tests hold against the JAX package), at a small size; ``build_kw``
-    are `build_pipeline` options (triangulation, flip-TTA, decode)."""
+    CPU tests hold against the JAX package), at a small size (``SMALL[small
+    or family]``); ``build_kw`` are `build_pipeline` options (triangulation,
+    flip-TTA, decode)."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
 
-    cfg, input_size = SMALL[family]
+    cfg, input_size = SMALL[small or family]
     shape = (4, cams, 96, 80, 3)
     small = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
     res = {}
@@ -579,23 +602,25 @@ def run_refinement_phase(dev="cuda") -> dict:
     return {"epochs_per_s": eps, "busy_share": busy / wall}
 
 
-def run_swin_main_path(dev, gen) -> dict:
-    """Swin-B at full width through `build_pipeline(family="swin")`: a warm-up
-    block, then N_SWIN_BLOCKS counted and timed blocks."""
+def run_swin_main_path(dev, gen, cfg, label: str, suffix: str = "") -> dict:
+    """Swin at full width (``cfg``: `SWIN_B` or `SWIN_L`) through
+    `build_pipeline(family="swin")`: a warm-up block, then N_SWIN_BLOCKS
+    counted and timed blocks, and the peak memory of the timed blocks.  The
+    returned dict carries ``label`` and ``suffix`` (of its kernel rows'
+    names) for the checks that follow."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
-    from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_B
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
     from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
     from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
 
     t0 = time.perf_counter()
-    pipe = build_pipeline(SWIN_B, INPUT, (SWIN_T, C, H, W, 3), device=dev, seed=0,
+    pipe = build_pipeline(cfg, INPUT, (SWIN_T, C, H, W, 3), device=dev, seed=0,
                           family="swin")
     blocks_u8 = [torch.randint(0, 256, (SWIN_T, C, H, W, 3), generator=gen,
                                dtype=torch.uint8).to(dev) for _ in range(2)]
     torch.cuda.synchronize()
-    log(f"Swin-B pipeline built in {time.perf_counter() - t0:.1f} s")
+    log(f"{label} pipeline built in {time.perf_counter() - t0:.1f} s")
     out = pipe.run(blocks_u8[0])  # warm-up
     torch.cuda.synchronize()
     counters = {"swin_gemm": sb.swin_gemm, "window_attention": wa.window_attention,
@@ -603,37 +628,43 @@ def run_swin_main_path(dev, gen) -> dict:
     for fn in counters.values():
         fn.launches = 0
     sb.swin_gemm.ln_launches = 0
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i in range(N_SWIN_BLOCKS):
         out = pipe.run(blocks_u8[i % 2])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["swin_gemm_ln"] = sb.swin_gemm.ln_launches
     fps = SWIN_T * N_SWIN_BLOCKS / dt
-    log(f"Swin-B main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) in "
-        f"{dt:.3f} s -> {fps:.1f} multi-camera frames/s; launches {launches}")
+    log(f"{label} main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) in "
+        f"{dt:.3f} s -> {fps:.1f} multi-camera frames/s; launches {launches}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} held before)")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the Swin main path")
-    n_blocks = sum(SWIN_B["depths"])
+        check(n > 0, f"kernel {name} was not launched on the {label} main path")
+    n_blocks = sum(cfg["depths"])
     check(launches == {"swin_gemm": 4 * n_blocks * N_SWIN_BLOCKS,
                        "swin_gemm_ln": 2 * n_blocks * N_SWIN_BLOCKS,
                        "window_attention": n_blocks * N_SWIN_BLOCKS,
                        "heatmap_decode": N_SWIN_BLOCKS},
-          "96 swin_gemm product launches (48 after a LayerNorm row-kernel launch), "
-          "24 window-attention and 1 decode launch per block")
+          f"{label}: {4 * n_blocks} swin_gemm product launches ({2 * n_blocks} after a "
+          f"LayerNorm row-kernel launch), {n_blocks} window-attention and 1 decode launch "
+          "per block")
     check_outputs(out, pipe, SWIN_T)
     return {"pipe": pipe, "frames": blocks_u8[0], "blocks": blocks_u8, "fps": fps,
-            "launches": launches}
+            "launches": launches, "peak_bytes": peak, "held_bytes": held, "label": label,
+            "suffix": suffix, "config": f"{label} {INPUT[0]}x{INPUT[1]}"}
 
 
 def run_fixed_main_path(swin: dict) -> dict:
-    """The Swin-B main path of `run_swin_main_path` (same pipeline, weights
+    """The Swin main path of `run_swin_main_path` (same pipeline, weights
     and frames) with ``MC3D_SWIN_FIXED=1``, which the caller has set: a
     warm-up block, then N_SWIN_BLOCKS counted and timed blocks, with spies
-    on the stage and chained-block entry points the model calls."""
+    on the stage and chained-block entry points the model calls, and the
+    peak memory of the timed blocks."""
     import torch
-    from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_B
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
     from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
     from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
@@ -657,33 +688,39 @@ def run_fixed_main_path(swin: dict) -> dict:
     for fn in counters.values():
         fn.launches = 0
     sb.swin_gemm.ln_launches = 0
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i in range(N_SWIN_BLOCKS):
         out = pipe.run(blocks_u8[i % 2])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     for name, fn in originals.items():
         setattr(sb, name, fn)
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["swin_gemm_ln"] = sb.swin_gemm.ln_launches
     fps = SWIN_T * N_SWIN_BLOCKS / dt
-    log(f"Swin-B fixed-order main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) "
+    label, cfg = swin["label"], pipe.estimator.model.cfg
+    log(f"{label} fixed-order main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) "
         f"in {dt:.3f} s -> {fps:.1f} multi-camera frames/s (chained layout {swin['fps']:.1f}); "
         f"launches {launches}; stages run fixed {calls['fused_swin_stage_fixed']}, chained "
-        f"blocks {calls['fused_swin_block']}")
-    n_blocks = sum(SWIN_B["depths"])
+        f"blocks {calls['fused_swin_block']}; peak memory {peak / 2 ** 30:.2f} GiB "
+        f"({held / 2 ** 30:.2f} held before)")
+    n_blocks = sum(cfg["depths"])
     check(launches == {"swin_gemm": 4 * n_blocks * N_SWIN_BLOCKS,
                        "swin_gemm_ln": 2 * n_blocks * N_SWIN_BLOCKS,
                        "window_attention_rows": n_blocks * N_SWIN_BLOCKS,
                        "window_attention": 0, "heatmap_decode": N_SWIN_BLOCKS},
-          "96 swin_gemm product and 48 LayerNorm row-kernel launches, 24 row-mode attention, "
-          "0 chained attention and 1 decode launch per block on the fixed-order path")
-    widths = [SWIN_B["embed"] * 2 ** i for i in range(len(SWIN_B["depths"]))]
+          f"{label}: {4 * n_blocks} swin_gemm product and {2 * n_blocks} LayerNorm row-kernel "
+          f"launches, {n_blocks} row-mode attention, 0 chained attention and 1 decode launch "
+          "per block on the fixed-order path")
+    widths = [cfg["embed"] * 2 ** i for i in range(len(cfg["depths"]))]
     check(calls["fused_swin_stage_fixed"] == widths * N_SWIN_BLOCKS,
-          "every stage ran fused_swin_stage_fixed")
-    check(not calls["fused_swin_block"], "the chained fused_swin_block ran no time")
+          f"{label}: every stage ran fused_swin_stage_fixed")
+    check(not calls["fused_swin_block"], f"{label}: the chained fused_swin_block ran no time")
     check_outputs(out, pipe, SWIN_T)
-    return {"fps": fps, "launches": launches}
+    return {"fps": fps, "launches": launches, "peak_bytes": peak, "held_bytes": held}
 
 
 def block_bound(real: int, p: dict, heads: int, n: int, C_: int, extra_bytes: int = 0):
@@ -897,17 +934,18 @@ def check_swin_kernels(swin: dict, dev) -> list:
             bound, by = block_bound(real, p, blk.heads, n, C_)
             t = {"ms": cuda_ms(lambda: sb.fused_swin_block(x, p, **args), 10),
                  "plain_ms": cuda_ms(lambda: sb.swin_block_plain(x, p, **args), 2)}
-            log(f"Swin stage {i} block 1 (x{depth}) tokens {tuple(x.shape)} ({real} real), "
-                f"map {Hc}x{Wc}: "
+            log(f"{swin['label']} stage {i} block 1 (x{depth}) tokens {tuple(x.shape)} "
+                f"({real} real), map {Hc}x{Wc}: "
                 f"max |kernel - plain| {err:.6g} (tolerance {SWIN_BLOCK_REL_TOL} x {scale:.4g}), "
                 f"share > 1 bf16 step of the token's largest {row_share:.3g} (tolerance "
                 f"{SWIN_ROW_FLIP_SHARE}), of their own binade {share:.3g}; kernel "
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {bound:.4f} ms by {by}")
             check(err <= SWIN_BLOCK_REL_TOL * scale and row_share <= SWIN_ROW_FLIP_SHARE,
-                  f"Swin stage {i}: the block kernels agree with their plain version")
+                  f"{swin['label']} stage {i}: the block kernels agree with their plain version")
             stages.append(dict(t, depth=depth, err=err, bound=bound, by=by))
             calls = capture_products(lambda: sb.fused_swin_block(x, p, **args))
-            products.append((depth, check_products(calls, real, f"stage {i}")))
+            products.append((depth, check_products(calls, real,
+                                                   f"{swin['label']} stage {i}")))
 
             # The attention core on this block's own qkv.
             valid, mask = sb.block_tables(Hc, Wc, blk.window, blk.shift, dev)
@@ -933,8 +971,8 @@ def check_swin_kernels(swin: dict, dev) -> list:
                 f"kernel {ta['ms']:.4f} ms ({abound / ta['ms']:.3f} of its bound), plain "
                 f"{ta['plain_ms']:.4f} ms, SDPA {ta['library_ms']:.4f} ms; bound {abound:.4f} ms "
                 f"by {aby}; host {ta['host_ms']:.4f} ms per call")
-            check(aerr <= ATTN_REL_TOL * ascale,
-                  f"Swin stage {i}: the window attention kernel agrees with its plain version")
+            check(aerr <= ATTN_REL_TOL * ascale, f"{swin['label']} stage {i}: the window "
+                  "attention kernel agrees with its plain version")
             # The random table (N(0, 0.02^2)) moves ctx by about 1e-3, under
             # that tolerance, so the same qkv again with a bias of trained
             # scale, N(0, 1): controls show that plain with no bias, with the
@@ -947,7 +985,8 @@ def check_swin_kernels(swin: dict, dev) -> list:
             berr = check_trained_bias(
                 lambda b_, m_: wa.window_attention(qkv, b_, m_, blk.heads),
                 lambda b_, m_: wa.window_attention_plain(qkv, b_, m_, blk.heads),
-                (strong, mask), controls, f"Swin stage {i}: the window attention kernel")
+                (strong, mask), controls,
+                f"{swin['label']} stage {i}: the window attention kernel")
             attn_stages.append(dict(ta, depth=depth, err=aerr, bias_err=berr, bound=abound,
                                     by=aby))
             del add
@@ -955,14 +994,14 @@ def check_swin_kernels(swin: dict, dev) -> list:
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     launches = swin["launches"]
     pk = products_keys(products)
-    log("Swin totals per forward (sum over stages of depth x one block): blocks kernel "
+    log(f"{swin['label']} totals per forward (sum over stages of depth x one block): blocks kernel "
         f"{total(stages, 'ms'):.4f} ms, bound {total(stages, 'bound'):.4f} ms; token products "
         f"{pk['products_ms']:.4f} ms, cuBLAS products alone {pk['products_library_ms']:.4f} ms, "
         f"bound {pk['products_bound_ms']:.4f} ms; attention kernel "
         f"{total(attn_stages, 'ms'):.4f} ms, SDPA {total(attn_stages, 'library_ms'):.4f} ms, "
         f"bound {total(attn_stages, 'bound'):.4f} ms, host {total(attn_stages, 'host_ms'):.4f} ms")
     return [
-        {"name": "swin_block", "route": "cuda",
+        {"name": f"swin_block{swin['suffix']}", "config": swin["config"], "route": "cuda",
          "source": f"{PORT}/csrc/swin_gemm.cu + {PORT}/csrc/window_attention.cu",
          "replaces": f"{here}/swin_block.py:704 (fused_swin_block, pallas_call :833)",
          "launches": launches["swin_gemm"] + launches["window_attention"],
@@ -973,7 +1012,7 @@ def check_swin_kernels(swin: dict, dev) -> list:
          **products_keys(products),
          "per_forward": f"{sum(cfg['depths'])} blocks: sum over stages of depth x one block "
                         "of the main path"},
-        {"name": "window_attention", "route": "cuda",
+        {"name": f"window_attention{swin['suffix']}", "config": swin["config"], "route": "cuda",
          "source": f"{PORT}/csrc/window_attention.cu",
          "replaces": f"{here}/window_attention.py:76 (fused_window_attention, pallas_call "
                      f":115); {here}/window_attention.py:189 (packed_window_attention, "
@@ -1058,21 +1097,22 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
                  "chained_ms": cuda_ms(lambda: sb.fused_swin_block(
                      xw, p, pre_partitioned=(B_, Hc, Wc), emit_partitioned=True,
                      **chained_args), 10)}
-            log(f"fixed stage {i} block 1 (x{depth}) tokens {tuple(x.shape)} (P={P}, {real} "
-                f"real), map {Hc}x{Wc}: max |kernel - plain| {err:.6g} (tolerance "
+            log(f"{swin['label']} fixed stage {i} block 1 (x{depth}) tokens {tuple(x.shape)} "
+                f"(P={P}, {real} real), map {Hc}x{Wc}: max |kernel - plain| {err:.6g} (tolerance "
                 f"{SWIN_BLOCK_REL_TOL} x {scale:.4g}), share > 1 bf16 step of the token's largest "
                 f"{row_share:.3g}; against the chained block after fixed_reverse {cerr:.6g} "
                 f"(tolerance {SWIN_BLOCK_REL_TOL} x {cscale:.4g}), share {crow_share:.3g} "
                 f"(tolerance {SWIN_ROW_FLIP_SHARE}); kernel {t['ms']:.4f} ms, chained block "
                 f"{t['chained_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {bound:.4f} ms "
                 f"by {bby}")
+            what = f"{swin['label']} fixed stage {i}"
             check(err <= SWIN_BLOCK_REL_TOL * scale and row_share <= SWIN_ROW_FLIP_SHARE,
-                  f"fixed stage {i}: the block kernels agree with their plain version")
+                  f"{what}: the block kernels agree with their plain version")
             check(cerr <= SWIN_BLOCK_REL_TOL * cscale and crow_share <= SWIN_ROW_FLIP_SHARE,
-                  f"fixed stage {i}: the fixed-order block agrees with the chained block")
+                  f"{what}: the fixed-order block agrees with the chained block")
             blocks.append(dict(t, depth=depth, err=err, bound=bound, by=bby))
             calls = capture_products(lambda: sb.fused_swin_block_fixed(x, p, **kw))
-            products.append((depth, check_products(calls, real, f"fixed stage {i}")))
+            products.append((depth, check_products(calls, real, what)))
 
             # The row-mode attention on this block's own qkv.
             qkv = sb.swin_gemm("qkv", x, p["wqkv"], p["bqkv"], ln=p["norm1"], valid=valid)
@@ -1108,7 +1148,7 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
                 f"gathered windows (gather and scatter left out) {ta['library_ms']:.4f} ms; bound "
                 f"{abound:.4f} ms by {aby}; host {ta['host_ms']:.4f} ms per call")
             check(aerr <= ATTN_REL_TOL * ascale,
-                  f"fixed stage {i}: the row-mode attention agrees with its plain version")
+                  f"{what}: the row-mode attention agrees with its plain version")
             strong = torch.randn(p["bias"].shape, generator=bias_gen).to(dev)
             identity = torch.arange(rows.numel(), dtype=torch.int32, device=dev)
             controls = {"the identity row table": (strong, mask, identity),
@@ -1117,7 +1157,7 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
             berr = check_trained_bias(
                 lambda b_, m_, r_=rows: wa.window_attention_rows(qkv, b_, m_, heads, r_, P),
                 lambda b_, m_, r_=rows: wa.window_attention_rows_plain(qkv, b_, m_, heads, r_, P),
-                (strong, mask), controls, f"fixed stage {i}: the row-mode attention")
+                (strong, mask), controls, f"{what}: the row-mode attention")
             attns.append(dict(ta, depth=depth, err=aerr, bias_err=berr, bound=abound, by=aby))
             del add, qkv_w, qkv_c
 
@@ -1153,18 +1193,18 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
                 f"of its largest output), share > 1 bf16 step of the token's largest "
                 f"{bf16_steps_apart_rows(ks, pstage):.3g}; kernel {ts['ms']:.4f} ms, plain "
                 f"{ts['plain_ms']:.4f} ms")
-            check(torch.equal(ks, one_by_one), f"fixed stage {i}: the stage is its blocks")
-            check(same_chained, f"fixed stage {i}: the stage equals the chained-layout stage")
+            check(torch.equal(ks, one_by_one), f"{what}: the stage is its blocks")
+            check(same_chained, f"{what}: the stage equals the chained-layout stage")
             check(serr <= depth * SWIN_BLOCK_REL_TOL * sscale,
-                  f"fixed stage {i}: the stage agrees with its plain version")
+                  f"{what}: the stage agrees with its plain version")
             stages.append(dict(ts, depth=1, err=serr, bound=depth * bound, by=bby))
 
     here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
     launches = fixed["launches"]["swin_gemm"] + fixed["launches"]["window_attention_rows"]
     ln_launches = fixed["launches"]["swin_gemm_ln"]
     pk = products_keys(products)
-    log("fixed-order Swin totals per forward (sum over stages of depth x one block): blocks "
-        f"kernel {total(blocks, 'ms'):.4f} ms (chained layout {total(blocks, 'chained_ms'):.4f}),"
+    log(f"fixed-order {swin['label']} totals per forward (sum over stages of depth x one "
+        f"block): blocks kernel {total(blocks, 'ms'):.4f} ms (chained layout {total(blocks, 'chained_ms'):.4f}),"
         f" token products {pk['products_ms']:.4f} ms (cuBLAS products alone "
         f"{pk['products_library_ms']:.4f}, bound {pk['products_bound_ms']:.4f}),"
         f" bound {total(blocks, 'bound'):.4f} ms; stages kernel {total(stages, 'ms'):.4f} ms; "
@@ -1173,7 +1213,8 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
         f"{total(attns, 'bound'):.4f} ms, host {total(attns, 'host_ms'):.4f} ms")
     src = f"{PORT}/csrc/swin_gemm.cu + {PORT}/csrc/window_attention.cu (row mode)"
     return [
-        {"name": "swin_block_fixed", "route": "cuda", "source": src,
+        {"name": f"swin_block_fixed{swin['suffix']}", "config": swin["config"], "route": "cuda",
+         "source": src,
          "replaces": f"{here}/swin_block.py:473 (fused_swin_block_fixed, pallas_call :528)",
          "launches": launches, "ln_launches": ln_launches,
          "max_abs_err": max(r["err"] for r in blocks),
@@ -1187,7 +1228,8 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
          "max_abs_err_attention_trained_bias": max(r["bias_err"] for r in attns),
          "per_forward": f"{sum(cfg['depths'])} blocks: sum over stages of depth x one block "
                         "of the fixed-order main path"},
-        {"name": "swin_stage_fixed", "route": "cuda", "source": src,
+        {"name": f"swin_stage_fixed{swin['suffix']}", "config": swin["config"], "route": "cuda",
+         "source": src,
          "replaces": f"{here}/swin_block.py:379 (fused_swin_stage_fixed, pallas_call :452)",
          "launches": launches, "ln_launches": ln_launches,
          "max_abs_err": max(r["err"] for r in stages),
@@ -1195,6 +1237,21 @@ def check_fixed_kernels(swin: dict, fixed: dict, dev) -> list:
          "bound_ms": total(stages, "bound"), "bound_by": rows_bound_by(stages), "library_ms": None,
          "per_forward": f"{len(cfg['depths'])} stages of the fixed-order main path, each whole"},
     ]
+
+
+@contextlib.contextmanager
+def fixed_layout():
+    """``MC3D_SWIN_FIXED=1`` inside the block (the Swin model reads it at
+    every forward), the variable as it was after."""
+    before = os.environ.get("MC3D_SWIN_FIXED")
+    os.environ["MC3D_SWIN_FIXED"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["MC3D_SWIN_FIXED"]
+        else:
+            os.environ["MC3D_SWIN_FIXED"] = before
 
 
 def kernel_counters() -> dict:
@@ -1914,6 +1971,135 @@ def check_decode(est, heat, label: str = ""):
     return flat, kd, dec_err
 
 
+def run_hrnet_main_path(dev, cfg, input_size, blocks_u8, label: str) -> dict:
+    """HRNet at full width through `build_pipeline` on ``blocks_u8`` (T, C,
+    H, W, 3) uint8 on the card, crops of ``input_size`` (w, h): a warm-up
+    block, then N_BLOCKS blocks with every count set to 0 just before and
+    read just after (4 Bottleneck and 1 decode launch per block, no other
+    kernel), frames/s, the output checks and the peak memory of the timed
+    blocks (``held_bytes`` allocated before them)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+
+    shape = tuple(blocks_u8[0].shape)
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, input_size, shape, device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"{label} pipeline built in {time.perf_counter() - t0:.1f} s")
+    pipe.run(blocks_u8[0])  # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, dt, launches = timed_blocks(pipe, blocks_u8, N_BLOCKS)
+    peak = torch.cuda.max_memory_allocated()
+    fps = shape[0] * N_BLOCKS / dt
+    log(f"{label} main path: {N_BLOCKS} blocks of {shape}, crops {input_size[0]}x"
+        f"{input_size[1]}, in {dt:.3f} s -> {fps:.1f} multi-camera frames/s; launches "
+        f"{launches}; peak memory {peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} held before)")
+    for name in ("bottleneck", "heatmap_decode"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the {label} main path")
+    check(launches == dict(bottleneck=4 * N_BLOCKS, heatmap_decode=N_BLOCKS, swin_gemm=0,
+                           window_attention=0, window_attention_rows=0),
+          f"{label}: 4 Bottleneck launches and 1 decode launch per block, no other kernel")
+    check_outputs(out, pipe, shape[0], shape[1])
+    return {"pipe": pipe, "fps": fps, "launches": launches, "peak_bytes": peak,
+            "held_bytes": held}
+
+
+def check_hrnet_kernels(est, block, dev, launches: dict, config: str, label: str = "",
+                        suffix: str = "") -> list:
+    """The stage-1 and decode kernels of an HRNet pipeline's estimator
+    ``est`` against their plain versions on the inputs its main path gave
+    them for ``block`` (the stem output for the Bottleneck chain, the
+    block's heatmaps for the decode), with kernel, plain and library times
+    (CUDA events) and the bounds from this run's shapes: the chain beside
+    the bytes bound of four launches, and block 0 and an identity block each
+    alone beside its own bound.  Returns the two kernel rows of the results
+    line (named with ``suffix``; ``launches``: the main path's counts)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
+
+    blocks = est.fused_stage1.blocks
+    x, xs, heat, _ = check_bottleneck_blocks(est, block, dev, label)
+    flat, kd, dec_err = check_decode(est, heat, label)
+    hw = heat.shape[-1]
+    with torch.inference_mode():
+        kern = bn.fused_stage1_chain(x, blocks)
+        plain = xs[-1]
+        lib = chain_library(x, blocks).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        err = (kern.float() - plain.float()).abs().max().item()
+        scale = plain.float().abs().max().item()
+        lib_err = (lib.float() - plain.float()).abs().max().item()
+        log(f"{label}stage-1 chain {tuple(x.shape)} -> {tuple(kern.shape)}: max |kernel - plain| "
+            f"{err:.6g} (tolerance {CHAIN_REL_TOL} x {scale:.4g}), share > 1 bf16 step "
+            f"{bf16_steps_apart(kern, plain):.3g}; cuDNN yardstick: max |cuDNN - plain| "
+            f"{lib_err:.6g}, share {bf16_steps_apart(lib, plain):.3g}")
+        check(err <= CHAIN_REL_TOL * scale,
+              f"the {label}Bottleneck chain agrees with its plain version")
+        del lib
+        chain = {"ms": cuda_ms(lambda: bn.fused_stage1_chain(x, blocks), 10),
+                 "plain_ms": cuda_ms(lambda: bn.stage1_chain_plain(x, blocks), 3),
+                 "library_ms": cuda_ms(lambda: chain_library(x, blocks), 10)}
+        bound_ms, bound_by, flops, nbytes = chain_bound(x, blocks, kern)
+        log(f"  kernel {chain['ms']:.4f} ms, plain {chain['plain_ms']:.4f} ms, cuDNN "
+            f"{chain['library_ms']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+            f"({flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB)")
+        # The chain as four launches: each reads its input and writes its
+        # output once, so it cannot beat the sum of the blocks' byte bounds.
+        four_bytes = sum(chain_bound(xs[i], blocks[i:i + 1], xs[i + 1])[3]
+                         for i in range(len(blocks)))
+        four_bound = four_bytes / PEAK_BYTES_S * 1e3
+        log(f"  four-launch bytes bound {four_bound:.4f} ms ({four_bytes / 1e9:.4f} GB), fused "
+            f"single-launch bound {bound_ms:.4f} ms by {bound_by}; kernel at "
+            f"{bound_ms / chain['ms']:.3f} of the fused bound, {four_bound / chain['ms']:.3f} of "
+            f"the four-launch bound")
+        # One launch alone (fused_bottleneck_block): block 0 (cin -> 256 with
+        # the downsample) and an identity block (256 -> 256).
+        one = {}
+        for i, what in ((0, "block0"), (1, "identity")):
+            r = {"ms": cuda_ms(lambda: bn.fused_bottleneck_block(xs[i], blocks[i]), 20),
+                 "plain_ms": cuda_ms(lambda: bn.bottleneck_block_plain(xs[i], blocks[i]), 3),
+                 "library_ms": cuda_ms(lambda: chain_library(xs[i], blocks[i:i + 1]), 20)}
+            r["bound_ms"], r["bound_by"], _, _ = chain_bound(xs[i], blocks[i:i + 1], xs[i + 1])
+            log(f"{label}one block ({what}) {tuple(xs[i].shape)}: kernel {r['ms']:.4f} ms "
+                f"({r['bound_ms'] / r['ms']:.3f} of its bound), plain {r['plain_ms']:.4f} ms, "
+                f"cuDNN {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+            one[what] = r
+
+        dec = {"ms": cuda_ms(lambda: fd.heatmap_decode_raw(flat, hw, est.heatmap_threshold), 50),
+               "plain_ms": cuda_ms(lambda: fd.heatmap_decode_raw_plain(flat, hw,
+                                                                       est.heatmap_threshold), 20)}
+        dec_bytes = flat.numel() * 4 + kd.numel() * 4
+        dec_bound = dec_bytes / PEAK_BYTES_S * 1e3
+        log(f"  {label}decode kernel {dec['ms']:.4f} ms, plain {dec['plain_ms']:.4f} ms; bound "
+            f"{dec_bound:.4f} ms by bytes ({dec_bytes / 1e6:.2f} MB)")
+    maps = [flat.shape[0], flat.shape[1] // hw, hw]
+    del x, xs, heat, flat, kd, kern, plain
+    torch.cuda.empty_cache()
+    here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
+    return [
+        {"name": f"stage1_bottleneck_chain{suffix}", "config": config, "route": "cuda",
+         "source": f"{PORT}/csrc/bottleneck.cu",
+         "replaces": f"{here}/bottleneck.py:299 (fused_stage1_chain, 4 launches); "
+                     f"{here}/bottleneck.py:150 (fused_bottleneck_block, 1 launch)",
+         "launches": launches["bottleneck"], "max_abs_err": err, "ms": chain["ms"],
+         "plain_ms": chain["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": chain["library_ms"], "share_of_bound": bound_ms / chain["ms"],
+         "four_launch_bound_ms": four_bound, "four_launch_bound_by": "bytes",
+         "share_of_four_launch_bound": four_bound / chain["ms"],
+         **{f"{what}_{k}": v for what, r in one.items() for k, v in r.items()},
+         **{f"{what}_share_of_bound": r["bound_ms"] / r["ms"] for what, r in one.items()}},
+        {"name": f"heatmap_decode{suffix}", "config": config, "route": "cuda",
+         "source": f"{PORT}/csrc/fused_decode.cu",
+         "replaces": f"{here}/fused_decode.py:104 (fused_heatmap_decode)",
+         "launches": launches["heatmap_decode"], "max_abs_err": dec_err, "ms": dec["ms"],
+         "plain_ms": dec["plain_ms"], "bound_ms": dec_bound, "bound_by": "bytes",
+         "library_ms": None, "maps": maps},
+    ]
+
+
 def top_device_ops(prof, k: int = 8) -> list:
     """The ``k`` device ops (kernels, copies) of a profiler window with the
     most time: [(name cut to 70 characters, ms, count)], summed over the
@@ -2470,10 +2656,11 @@ def rel_gap(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
-def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float) -> dict:
+def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float, swin: dict) -> dict:
     """Phase 22: the CPU references in a one-rank gloo group, then a one-rank
-    NCCL group (`init_distributed`) through the headline block, BASELINE
-    config 5's clips, the data-parallel train step and `sharded_refine_step`."""
+    NCCL group (`init_distributed`) through the headline block, phase 6's
+    Swin-B block, BASELINE config 5's clips, the data-parallel train step
+    and `sharded_refine_step`."""
     import socket
 
     import numpy as np
@@ -2524,6 +2711,25 @@ def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float) -> dict:
         check(equal, "the one-rank mesh pipeline equals mesh=None bit for bit")
         check_outputs(out, sharded, T)
         res["launches"]["headline"] = launches
+
+        # Phase 6's Swin-B block through the mesh, against its one-device run.
+        spipe = swin["pipe"]
+        ssharded = ShardedPosePipeline(spipe.estimator, spipe.cam_stack, mesh=mesh, device=dev)
+        ssharded.run(swin["blocks"][0])  # warm-up
+        torch.cuda.synchronize()
+        out, dt, launches = timed_blocks(ssharded, swin["blocks"], 1)
+        equal = same_tensors(out, spipe.run(swin["blocks"][0]))
+        res["swin_mesh_frames_per_s"] = SWIN_T / dt
+        log(f"  Swin-B block on make_mesh(1): ({SWIN_T}, {C}, {H}, {W}, 3) in {dt:.3f} s -> "
+            f"{res['swin_mesh_frames_per_s']:.1f} frames/s (phase 6 {swin['fps']:.1f}); "
+            f"launches {launches}; equal to mesh=None bit for bit: {equal}")
+        n_swin = sum(spipe.estimator.model.cfg["depths"])
+        check(launches == dict(bottleneck=0, heatmap_decode=1, swin_gemm=4 * n_swin,
+                               window_attention=n_swin, window_attention_rows=0),
+              "the Swin-B mesh pipeline: 96 swin_gemm, 24 attention and 1 decode launch")
+        check(equal, "the one-rank mesh Swin-B pipeline equals mesh=None bit for bit")
+        res["launches"]["swin_b"] = launches
+        del ssharded, out
 
         # BASELINE config 5: 8 clips x T=32 x 4 cameras (1024 crops per block).
         n_clips, clip_t, cams = MULTICLIP
@@ -3176,6 +3382,59 @@ def run_last_modules_phase(dev, pipe, blocks_u8, phase3_fps: float, card: str) -
     return res
 
 
+W48_INPUT = (288, 384)  # (w, h): the registry's coco_hrnet_w48
+
+
+def run_published_widths_phase(dev, gen, blocks_u8, card: str) -> dict:
+    """Phase 25: the registry's other two heatmap models at full width.
+    HRNet-W48 at 288x384 on the headline blocks (4 Bottleneck and 1 decode
+    launch per block), its kernels against their plain versions at 96x72,
+    and a small W48-width pipeline card against CPU; then Swin-L chained
+    and with ``MC3D_SWIN_FIXED=1`` (96 swin_gemm, 48 LayerNorm row-kernel,
+    24 attention and 1 decode launch per block), each stage's block,
+    products, attention (and fixed stage) against their plain versions.
+    Prints frames/s, peak memory and every kernel row beside the card."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W48
+    from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_L
+
+    w48 = run_hrnet_main_path(dev, HRNET_W48, W48_INPUT, blocks_u8, "HRNet-W48")
+    rows = check_hrnet_kernels(w48.pop("pipe").estimator, blocks_u8[0], dev, w48["launches"],
+                               config=f"HRNet-W48 {W48_INPUT[0]}x{W48_INPUT[1]}",
+                               label="HRNet-W48 ", suffix="_w48")
+    torch.cuda.empty_cache()
+    check_small_pipeline(gen, family="hrnet", label="W48-width ", small="hrnet_w48")
+
+    swin = run_swin_main_path(dev, gen, SWIN_L, "Swin-L", suffix="_swin_l")
+    rows += check_swin_kernels(swin, dev)
+    with fixed_layout():
+        fixed = run_fixed_main_path(swin)
+        rows += check_fixed_kernels(swin, fixed, dev)
+    del swin["pipe"], swin["blocks"], swin["frames"]
+    torch.cuda.empty_cache()
+
+    res = {"launches": {"hrnet_w48": w48["launches"], "swin_l": swin["launches"],
+                        "swin_l_fixed": fixed["launches"]},
+           "paths": {name: {k: r[k] for k in ("fps", "peak_bytes", "held_bytes")}
+                     for name, r in (("hrnet_w48", w48), ("swin_l", swin),
+                                     ("swin_l_fixed", fixed))}}
+    for name, r in res["paths"].items():
+        log(f"[{card}] {name}: {r['fps']:.1f} multi-camera frames/s; "
+            f"torch.cuda.max_memory_allocated {r['peak_bytes'] / 2 ** 30:.3f} GiB over the "
+            f"timed blocks ({r['held_bytes'] / 2 ** 30:.3f} GiB held before them)")
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"[{card}] {r['name']} ({r['config']}): kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.3f} of it), "
+            f"plain {r['plain_ms']:.4f} ms, library {lib}"
+            + (f"; products {r['products_ms']:.4f} ms, cuBLAS {r['products_library_ms']:.4f} "
+               f"ms, bound {r['products_bound_ms']:.4f} ms" if "products_ms" in r else "")
+            + (f"; SDPA {r['attention_sdpa_ms']:.4f} ms" if "attention_sdpa_ms" in r else "")
+            + f"; {r['launches']} launches on its main path")
+    res["rows"] = rows
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3189,10 +3448,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from multi_camera_3d_pose_estimation_tpu_torch import _native
-    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
     from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
-    from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
-    from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
+    from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_B
 
     dev = torch.device("cuda")
     # 1. The card.
@@ -3211,109 +3468,31 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     # 3. The main path at full width.
-    t0 = time.perf_counter()
-    pipe = build_pipeline(HRNET_W32, INPUT, (T, C, H, W, 3), device="cuda", seed=0)
     gen = torch.Generator().manual_seed(1)
     blocks_u8 = [torch.randint(0, 256, (T, C, H, W, 3), generator=gen, dtype=torch.uint8).to(dev)
                  for _ in range(2)]
-    torch.cuda.synchronize()
-    log(f"pipeline built in {time.perf_counter() - t0:.1f} s")
-    out = pipe.run(blocks_u8[0])  # warm-up
-    torch.cuda.synchronize()
-    counters = {"bottleneck": bn.fused_bottleneck_block, "heatmap_decode": fd.heatmap_decode_raw}
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    for i in range(N_BLOCKS):
-        out = pipe.run(blocks_u8[i % 2])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    fps = T * N_BLOCKS / dt
-    log(f"main path: {N_BLOCKS} blocks of ({T}, {C}, {H}, {W}, 3) in {dt:.3f} s -> "
-        f"{fps:.1f} multi-camera frames/s; launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-    check(launches == {"bottleneck": 4 * N_BLOCKS, "heatmap_decode": N_BLOCKS},
-          "4 Bottleneck launches and 1 decode launch per block")
-    check_outputs(out, pipe, T)
+    headline = run_hrnet_main_path(dev, HRNET_W32, INPUT, blocks_u8, "HRNet-W32")
+    pipe, fps, launches = headline["pipe"], headline["fps"], headline["launches"]
 
     # 4. Each kernel against its plain version, on the main path's inputs.
-    est = pipe.estimator
-    blocks = est.fused_stage1.blocks
-    x, xs, heat, _ = check_bottleneck_blocks(est, blocks_u8[0], dev)
-    flat, kd, dec_err = check_decode(est, heat)
-    hw = heat.shape[-1]
-    with torch.inference_mode():
-        kern = bn.fused_stage1_chain(x, blocks)
-        plain = xs[-1]
-        lib = chain_library(x, blocks).permute(0, 2, 3, 1)
-        torch.cuda.synchronize()
-        err = (kern.float() - plain.float()).abs().max().item()
-        scale = plain.float().abs().max().item()
-        lib_err = (lib.float() - plain.float()).abs().max().item()
-        log(f"stage-1 chain {tuple(x.shape)} -> {tuple(kern.shape)}: max |kernel - plain| "
-            f"{err:.6g} (tolerance {CHAIN_REL_TOL} x {scale:.4g}), share > 1 bf16 step "
-            f"{bf16_steps_apart(kern, plain):.3g}; cuDNN yardstick: max |cuDNN - plain| "
-            f"{lib_err:.6g}, share {bf16_steps_apart(lib, plain):.3g}")
-        check(err <= CHAIN_REL_TOL * scale, "the Bottleneck chain agrees with its plain version")
-        chain = {"ms": cuda_ms(lambda: bn.fused_stage1_chain(x, blocks), 10),
-                 "plain_ms": cuda_ms(lambda: bn.stage1_chain_plain(x, blocks), 3),
-                 "library_ms": cuda_ms(lambda: chain_library(x, blocks), 10)}
-        bound_ms, bound_by, flops, nbytes = chain_bound(x, blocks, kern)
-        log(f"  kernel {chain['ms']:.4f} ms, plain {chain['plain_ms']:.4f} ms, cuDNN "
-            f"{chain['library_ms']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-            f"({flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB)")
-        # The chain as four launches: each reads its input and writes its
-        # output once, so it cannot beat the sum of the blocks' byte bounds.
-        four_bytes = sum(chain_bound(xs[i], blocks[i:i + 1], xs[i + 1])[3]
-                         for i in range(len(blocks)))
-        four_bound = four_bytes / PEAK_BYTES_S * 1e3
-        log(f"  four-launch bytes bound {four_bound:.4f} ms ({four_bytes / 1e9:.4f} GB), fused "
-            f"single-launch bound {bound_ms:.4f} ms by {bound_by}; kernel at "
-            f"{bound_ms / chain['ms']:.3f} of the fused bound, {four_bound / chain['ms']:.3f} of "
-            f"the four-launch bound")
-        # One launch alone (fused_bottleneck_block): block 0 (cin -> 256 with
-        # the downsample) and an identity block (256 -> 256).
-        one = {}
-        for i, what in ((0, "block0"), (1, "identity")):
-            r = {"ms": cuda_ms(lambda: bn.fused_bottleneck_block(xs[i], blocks[i]), 20),
-                 "plain_ms": cuda_ms(lambda: bn.bottleneck_block_plain(xs[i], blocks[i]), 3),
-                 "library_ms": cuda_ms(lambda: chain_library(xs[i], blocks[i:i + 1]), 20)}
-            r["bound_ms"], r["bound_by"], _, _ = chain_bound(xs[i], blocks[i:i + 1], xs[i + 1])
-            log(f"one block ({what}) {tuple(xs[i].shape)}: kernel {r['ms']:.4f} ms "
-                f"({r['bound_ms'] / r['ms']:.3f} of its bound), plain {r['plain_ms']:.4f} ms, "
-                f"cuDNN {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
-            one[what] = r
-
-        dec = {"ms": cuda_ms(lambda: fd.heatmap_decode_raw(flat, hw, est.heatmap_threshold), 50),
-               "plain_ms": cuda_ms(lambda: fd.heatmap_decode_raw_plain(flat, hw,
-                                                                       est.heatmap_threshold), 20)}
-        dec_bytes = flat.numel() * 4 + kd.numel() * 4
-        dec_bound = dec_bytes / PEAK_BYTES_S * 1e3
-        log(f"  kernel {dec['ms']:.4f} ms, plain {dec['plain_ms']:.4f} ms; bound "
-            f"{dec_bound:.4f} ms by bytes ({dec_bytes / 1e6:.2f} MB)")
+    hrnet_rows = check_hrnet_kernels(pipe.estimator, blocks_u8[0], dev, launches,
+                                     config=f"HRNet-W32 {INPUT[0]}x{INPUT[1]}")
 
     # 5. The pipeline on the card against the plain CPU path, small size.
     check_small_pipeline(gen, family="hrnet")
 
     # 6. The Swin-B main path at full width.
-    swin = run_swin_main_path(dev, gen)
+    swin = run_swin_main_path(dev, gen, SWIN_B, "Swin-B")
     # 7. One SwinBlock of each stage and its attention against the plain versions.
     swin_rows = check_swin_kernels(swin, dev)
     # 8. A small Swin pipeline on the card against the plain CPU path.
     check_small_pipeline(gen, family="swin")
 
     # 9-11. The fixed-order Swin layout: main path, kernels, small pipeline.
-    before = os.environ.get("MC3D_SWIN_FIXED")
-    os.environ["MC3D_SWIN_FIXED"] = "1"
-    fixed = run_fixed_main_path(swin)
-    fixed_rows_json = check_fixed_kernels(swin, fixed, dev)
-    check_small_pipeline(gen, family="swin", label="fixed-order ")
-    if before is None:
-        del os.environ["MC3D_SWIN_FIXED"]
-    else:
-        os.environ["MC3D_SWIN_FIXED"] = before
+    with fixed_layout():
+        fixed = run_fixed_main_path(swin)
+        fixed_rows_json = check_fixed_kernels(swin, fixed, dev)
+        check_small_pipeline(gen, family="swin", label="fixed-order ")
 
     # 12. The n-view + flip-TTA main path at full width (4 cameras).
     nview = run_nview_flip_main_path(dev, gen)
@@ -3357,7 +3536,7 @@ def main() -> int:
     log(f"phase 21 took {pth['seconds']:.1f} s")
     # 22. The mesh paths as a one-rank NCCL group.
     t22 = time.perf_counter()
-    mesh = run_mesh_phase(dev, pipe, blocks_u8, fps)
+    mesh = run_mesh_phase(dev, pipe, blocks_u8, fps, swin)
     mesh["seconds"] = time.perf_counter() - t22
     log(f"phase 22 took {mesh['seconds']:.1f} s")
     # 23. The calibration chain on the card, and the headline block on its rig.
@@ -3371,31 +3550,16 @@ def main() -> int:
     last = run_last_modules_phase(dev, pipe, blocks_u8, fps, card)
     last["seconds"] = time.perf_counter() - t24
     log(f"phase 24 took {last['seconds']:.1f} s")
+    # 25. HRNet-W48 at 288x384 and Swin-L (chained and fixed) through every kernel.
+    t25 = time.perf_counter()
+    published = run_published_widths_phase(dev, gen, blocks_u8, card)
+    published["seconds"] = time.perf_counter() - t25
+    log(f"phase 25 took {published['seconds']:.1f} s")
 
-    # 25. Results.
-    here = "multi_camera_3d_pose_estimation_tpu/ops/pallas"
-    kernels = [
-        {"name": "stage1_bottleneck_chain", "route": "cuda", "source": f"{PORT}/csrc/bottleneck.cu",
-         "replaces": f"{here}/bottleneck.py:299 (fused_stage1_chain, 4 launches); "
-                     f"{here}/bottleneck.py:150 (fused_bottleneck_block, 1 launch)",
-         "launches": launches["bottleneck"], "max_abs_err": err, "ms": chain["ms"],
-         "plain_ms": chain["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": chain["library_ms"], "share_of_bound": bound_ms / chain["ms"],
-         "flip_path_launches": nview["launches"]["bottleneck"],
-         "four_launch_bound_ms": four_bound, "four_launch_bound_by": "bytes",
-         "share_of_four_launch_bound": four_bound / chain["ms"],
-         **{f"{what}_{k}": v for what, r in one.items() for k, v in r.items()},
-         **{f"{what}_share_of_bound": r["bound_ms"] / r["ms"] for what, r in one.items()}},
-        {"name": "heatmap_decode", "route": "cuda", "source": f"{PORT}/csrc/fused_decode.cu",
-         "replaces": f"{here}/fused_decode.py:104 (fused_heatmap_decode)",
-         "launches": launches["heatmap_decode"],
-         "flip_path_launches": nview["launches"]["heatmap_decode"],
-         "max_abs_err": dec_err, "ms": dec["ms"],
-         "plain_ms": dec["plain_ms"], "bound_ms": dec_bound, "bound_by": "bytes",
-         "library_ms": None},
-    ]
-    kernels += swin_rows + fixed_rows_json
-    for row in kernels:
+    # 26. Results.
+    hrnet_rows[0]["flip_path_launches"] = nview["launches"]["bottleneck"]
+    hrnet_rows[1]["flip_path_launches"] = nview["launches"]["heatmap_decode"]
+    for row in hrnet_rows + swin_rows + fixed_rows_json:
         row["launches_phases_15_17"] = {
             path: sum(r["launches"][c] for c in ROW_COUNTERS[row["name"]])
             for path, r in paths.items()}
@@ -3417,6 +3581,10 @@ def main() -> int:
         row["launches_phase_24"] = {
             what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
             for what, n in last["launches"].items()}
+        row["launches_phase_25"] = {
+            what: sum(n.get(c, 0) for c in ROW_COUNTERS[row["name"]])
+            for what, n in published["launches"].items()}
+    kernels = hrnet_rows + swin_rows + fixed_rows_json + published["rows"]
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]
@@ -3441,6 +3609,8 @@ def main() -> int:
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"},
                       "calibration": {k: v for k, v in calibration.items() if k != "launches"},
                       "last_modules": {k: v for k, v in last.items() if k != "launches"},
+                      "published_widths": {k: v for k, v in published.items()
+                                           if k not in ("launches", "rows")},
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,11 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes``.  Libraries go to the package's
-``build/`` directory (listed in ``.gitignore``), named by a hash of the
-source so an edited kernel is rebuilt.  Nothing is built on import: a kernel
-is built at its first launch, or all at once, in parallel, by `build_all`.
+``build/`` directory (listed in ``.gitignore``) or, where this process
+cannot write there (a read-only install), to a per-user cache
+(`build_dir`), named by a hash of the source so an edited kernel is
+rebuilt.  Nothing is built on import: a kernel is built at its first
+launch, or all at once, in parallel, by `build_all`.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 
 A kernel called through ``ctypes`` is invisible to autograd: its output
@@ -23,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "library", "check", "refuse_autograd"]
+__all__ = ["SOURCES", "build_all", "build_dir", "library", "check", "refuse_autograd"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -43,10 +45,33 @@ def _nvcc() -> str:
     return path
 
 
+def writable(path: Path) -> bool:
+    """Whether this process can create files in ``path``: the directory, or
+    the nearest one above it that exists, is writable."""
+    while not path.exists() and path.parent != path:
+        path = path.parent
+    return os.access(path, os.W_OK)
+
+
+def build_dir(own: Path = BUILD) -> Path:
+    """Where a native library is built: ``own`` (a git-ignored ``build/``
+    of the package) when this process can write there, else a per-user
+    cache, ``$XDG_CACHE_HOME`` (or ``~/.cache``) ``/mc3d-pose-tpu-torch/
+    <version>/build``, as the JAX package builds its media library in a
+    read-only install.  The libraries' names carry their sources' digest,
+    so either place holds one library per source."""
+    if writable(own):
+        return own
+    from . import __version__
+
+    base = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(base) / "mc3d-pose-tpu-torch" / __version__ / "build"
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def _start(name: str):
@@ -54,7 +79,7 @@ def _start(name: str):
     out = _target(name)
     if out.exists():
         return None
-    BUILD.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

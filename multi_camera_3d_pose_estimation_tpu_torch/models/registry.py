@@ -299,7 +299,7 @@ def build_estimator(name: str = "coco_hrnet_w32", checkpoint: str | None = None,
       for another family): the Swin attention path, `build_model`'s
       ``swin_attention`` ("block" when None).
     - ``use_pallas_stage1`` (the JAX keyword): `TopDownEstimator`'s
-      ``use_fused_stage1``.
+      ``use_fused_stage1`` (``ValueError`` where both are given and differ).
     - ``estimator_kwargs`` pass to `TopDownEstimator` (e.g.
       ``use_fused_stage1=True``, ``use_fused_decode=True``,
       ``flip_test=True``); the kernels are off unless asked for, as in the
@@ -309,13 +309,12 @@ def build_estimator(name: str = "coco_hrnet_w32", checkpoint: str | None = None,
     if use_pallas_attention is not None and spec["family"] != "swin":
         raise ValueError(f"use_pallas_attention applies to the swin family only, not "
                          f"'{name}' ({spec['family']})")
-    if use_pallas_stage1 is not None:
-        estimator_kwargs["use_fused_stage1"] = use_pallas_stage1
     model = build_model(spec["family"], spec["cfg"], device, variables, seed,
                         spec["input_size"], num_joints, checkpoint, dtype,
                         "block" if use_pallas_attention is None else use_pallas_attention)
     return TopDownEstimator(model, input_size=spec["input_size"], decode=spec["decode"],
-                            device=device, **estimator_kwargs)
+                            device=device, use_pallas_stage1=use_pallas_stage1,
+                            **estimator_kwargs)
 
 
 # name -> (family, cfg): the JAX registry's detector names.

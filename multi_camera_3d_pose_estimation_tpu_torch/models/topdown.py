@@ -117,7 +117,8 @@ class TopDownEstimator:
       `heatmap_moments`; heatmap decode only, ignored for SimCC.
     - ``use_fused_stage1``: run HRNet's stage 1 through the Bottleneck
       kernel (`ops.make_fused_stage1`).  A `SwinPose` picks its kernels
-      itself (``use_pallas_attention``).
+      itself (``use_pallas_attention``).  ``use_pallas_stage1`` is its JAX
+      name; giving both with different values raises ``ValueError``.
     - ``flip_test``: flip-TTA: the mirrored crops through the model again,
       their heatmaps mirrored back, left/right joints swapped (the
       ``connectivity_type`` swap table), shifted one heatmap pixel right
@@ -131,9 +132,16 @@ class TopDownEstimator:
 
     def __init__(self, model, input_size=(192, 256), decode: str = "heatmap",
                  heatmap_threshold: float = 0.01, bbox_padding: float = 1.25,
-                 use_fused_decode: bool = False, use_fused_stage1: bool = False,
+                 use_fused_decode: bool = False, use_fused_stage1: bool | None = None,
                  flip_test: bool = False, flip_shift: bool = True, decode_mode: str = "default",
-                 connectivity_type: str = "coco", device="cuda"):
+                 connectivity_type: str = "coco", device="cuda",
+                 use_pallas_stage1: bool | None = None):
+        if (use_fused_stage1 is not None and use_pallas_stage1 is not None
+                and bool(use_fused_stage1) != bool(use_pallas_stage1)):
+            raise ValueError(f"use_fused_stage1={use_fused_stage1} and its JAX name "
+                             f"use_pallas_stage1={use_pallas_stage1} disagree")
+        if use_fused_stage1 is None:
+            use_fused_stage1 = bool(use_pallas_stage1)
         if decode not in ("heatmap", "simcc"):
             raise ValueError(f"unknown decode '{decode}'")
         if decode_mode not in ("default", "dark"):

@@ -5,10 +5,12 @@ thread, the multi-camera block assembler (``mda_*``), container audio
 decode and an audio remux, the same C ABI as the JAX package's
 ``native/``.  The library is built with ``make`` (g++ and the libav
 development files) at the first `load_mediadec`, into the package's
-git-ignored ``build/``, named by a hash of the source and flags so that an
-edited source is rebuilt.  Nothing is built on import.  Without the
-toolchain or libav, `load_mediadec` returns None and the callers fall back:
-`io.frames` to cv2, `sync.audio` to PCM ``.wav`` files.
+git-ignored ``build/`` or, where this process cannot write there (a
+read-only install), a per-user cache (`_native.build_dir`), named by a
+hash of the source and flags so that an edited source is rebuilt.
+Nothing is built on import.  Without the toolchain or libav,
+`load_mediadec` returns None and the callers fall back: `io.frames` to
+cv2, `sync.audio` to PCM ``.wav`` files.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+
+from .._native import build_dir
 
 __all__ = ["build", "load_mediadec", "library_path", "remux_with_audio"]
 
@@ -32,19 +36,21 @@ def library_path() -> Path:
     """Where the library of the current source is (or will be) built."""
     src = (_DIR / "mediadec.cpp").read_bytes() + (_DIR / "Makefile").read_bytes()
     digest = hashlib.sha256(src + _CXXFLAGS.encode()).hexdigest()[:12]
-    return BUILD / f"libmediadec-{digest}.so"
+    return build_dir(BUILD) / f"libmediadec-{digest}.so"
 
 
-def build() -> bool:
-    """Compile the library into ``build/`` unless it is there; returns
-    whether it is there afterwards.  A failed compile (no g++, no libav,
-    an unwritable directory) returns False."""
+def build(force: bool = False) -> bool:
+    """Compile the library into `library_path` unless it is there (or
+    again, when ``force``); returns whether it is there afterwards.  A
+    failed compile (no g++, no libav, an unwritable directory) returns
+    False.  The sources are read where they are installed: ``make`` writes
+    the library only."""
     out = library_path()
-    if out.exists():
+    if out.exists() and not force:
         return True
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        BUILD.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run(["make", "-C", str(_DIR), f"OUT={tmp}", f"CXXFLAGS={_CXXFLAGS}", str(tmp)],
                        check=True, capture_output=True, text=True)
         os.replace(tmp, out)

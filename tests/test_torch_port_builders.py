@@ -114,3 +114,30 @@ def test_centernet_pth_raises_in_both(tmp_path, fast_init):
                                                                              **k)):
         with pytest.raises(ValueError, match="not implemented for centernet"):
             build("test_centernet_w8", checkpoint=str(path))
+
+
+def test_topdown_estimator_takes_the_jax_stage1_keyword():
+    """``TopDownEstimator(use_pallas_stage1=)`` is ``use_fused_stage1=`` by its
+    JAX name (JAX ``models/topdown.py``): the same stage-1 chain and the same
+    keypoints; the two names given with different values raise, here and
+    through ``build_estimator``."""
+    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import TopDownEstimator
+
+    est = registry.build_estimator("test_tiny", device="cpu", seed=1)
+    frames = np.random.default_rng(2).integers(0, 256, (2, 80, 64, 3), dtype=np.uint8)
+    out = {}
+    for kw in ({"use_pallas_stage1": True}, {"use_fused_stage1": True},
+               {"use_fused_stage1": True, "use_pallas_stage1": True}, {}):
+        e = TopDownEstimator(est.model, input_size=est.input_size, device="cpu", **kw)
+        assert (e.fused_stage1 is not None) == bool(kw)
+        out[tuple(kw)] = e.predict_batch(frames)
+    fused = out[("use_pallas_stage1",)]
+    for k in fused:
+        assert torch.equal(fused[k], out[("use_fused_stage1",)][k])
+        assert torch.equal(fused[k], out[("use_fused_stage1", "use_pallas_stage1")][k])
+    with pytest.raises(ValueError, match="use_pallas_stage1"):
+        TopDownEstimator(est.model, input_size=est.input_size, device="cpu",
+                         use_fused_stage1=False, use_pallas_stage1=True)
+    with pytest.raises(ValueError, match="use_pallas_stage1"):
+        registry.build_estimator("test_tiny", device="cpu", use_pallas_stage1=True,
+                                 use_fused_stage1=False)

@@ -62,14 +62,15 @@ def _block(gen, cin, down, device):
 # either side.  B above the SM count at 16x8 (2 tiles per image: runs cross
 # images and start mid-image), H x W not a multiple of the tile (13x12,
 # 37x20), B = 1 at 64x48, W = 72 (HRNet-W48 at 384x288: two units of
-# lookahead), and every cin of HRNet's stage 1: 16 and 64 with the
-# downsample, 256 identity.
+# lookahead; block 0 with the downsample and an identity block), and every
+# cin of HRNet's stage 1: 16 and 64 with the downsample, 256 identity.
 @pytest.mark.parametrize("B,H,W,cin,down", [(2, 64, 48, 64, True), (2, 64, 48, 256, False),
                                             (3, 16, 8, 16, True), (1, 13, 12, 256, False),
                                             (133, 16, 8, 16, True), (263, 16, 8, 256, False),
                                             (3, 37, 20, 256, False), (5, 13, 12, 64, True),
                                             (1, 64, 48, 64, True), (1, 64, 48, 256, False),
-                                            (2, 96, 72, 256, False), (137, 64, 48, 256, False)])
+                                            (2, 96, 72, 256, False), (137, 64, 48, 256, False),
+                                            (2, 96, 72, 64, True)])
 def test_bottleneck_kernel_matches_plain(card, B, H, W, cin, down):
     gen = torch.Generator().manual_seed(cin + H)
     p = _block(gen, cin, down, card)
@@ -107,16 +108,18 @@ def test_bottleneck_kernel_refuses_f32(card):
         bn.fused_bottleneck_block(torch.zeros(1, 4, 4, 64, device=card), p)
 
 
-def test_decode_kernel_matches_plain(card):
+# HRNet-W32's 64x48 maps and HRNet-W48's 96x72 (HW = 6912).
+@pytest.mark.parametrize("H,W", [(64, 48), (96, 72)])
+def test_decode_kernel_matches_plain(card, H, W):
     gen = torch.Generator().manual_seed(0)
-    hm = torch.rand(300, 64 * 48, generator=gen)
+    hm = torch.rand(300, H * W, generator=gen)
     hm[0] = 0.0  # empty map
     hm[1, 5] = hm[1, 100] = 2.0  # tied peak: the first wins
     hm[2] = torch.round(hm[2] * 4) / 4  # many ties
     hm = hm.to(card)
-    out = fd.heatmap_decode_raw(hm, 48, 0.01)
+    out = fd.heatmap_decode_raw(hm, W, 0.01)
     torch.cuda.synchronize()
-    ref = fd.heatmap_decode_raw_plain(hm, 48, 0.01)
+    ref = fd.heatmap_decode_raw_plain(hm, W, 0.01)
     assert ((out - ref).abs() / (ref.abs() + 1)).max() <= 1e-5
     assert torch.equal(out[:, 6:8], ref[:, 6:8]) and out[1, 7] == 5
 
@@ -148,14 +151,16 @@ def _swin_params(gen, C, heads, ratio, device):
 
 
 # The kernel's edges: K = 96 (Swin-T, not a multiple of the 64-deep stage),
-# K = 4096 (Swin-B stage-3 fc2), N not a multiple of the 128-column tile (and
-# under one 64-column half), M not a multiple of the 128-row tile, and the
-# fixed-order valid period (P = 200 rows of a 12x10 map, window 7).
+# K = 4096 (Swin-B stage-3 fc2), K = 6144 (Swin-L stage-3 fc2), N not a
+# multiple of the 128-column tile (and under one 64-column half; Swin-L
+# stage 0's qkv, 576, from K = 192), M not a multiple of the 128-row tile,
+# and the fixed-order valid period (P = 200 rows of a 12x10 map, window 7).
 @pytest.mark.parametrize("mode,M,K,N", [("qkv", 4 * 49 * 6, 128, 384), ("resid", 999, 256, 256),
                                         ("gelu", 1000, 64, 256), ("resid", 130, 1024, 96),
                                         ("qkv", 3 * 200, 96, 288), ("gelu", 777, 96, 384),
                                         ("resid", 3000, 4096, 1024), ("gelu", 513, 256, 200),
-                                        ("resid", 4 * 200, 128, 72), ("qkv", 2 * 200, 64, 40)])
+                                        ("resid", 4 * 200, 128, 72), ("qkv", 2 * 200, 64, 40),
+                                        ("resid", 1000, 6144, 1536), ("qkv", 999, 192, 576)])
 def test_swin_gemm_matches_plain(card, mode, M, K, N):
     gen = torch.Generator().manual_seed(M + K)
     a = torch.randn(M, K, generator=gen).to(card, torch.bfloat16)
@@ -297,6 +302,13 @@ def _attention_both_modes(card, B, heads, H, W, win, shift, seed):
 @pytest.mark.parametrize("shift", [3, 0])
 @pytest.mark.parametrize("heads,H,W", [(4, 64, 48), (8, 32, 24), (16, 16, 12), (32, 8, 6)])
 def test_window_attention_swin_b_stages(card, heads, H, W, shift):
+    _attention_both_modes(card, 64, heads, H, W, 7, shift, heads + shift)
+
+
+# The Swin-L stages at 192x256 input: 6, 12, 24 and 48 heads on the same maps.
+@pytest.mark.parametrize("shift", [3, 0])
+@pytest.mark.parametrize("heads,H,W", [(6, 64, 48), (12, 32, 24), (24, 16, 12), (48, 8, 6)])
+def test_window_attention_swin_l_stages(card, heads, H, W, shift):
     _attention_both_modes(card, 64, heads, H, W, 7, shift, heads + shift)
 
 
@@ -701,6 +713,51 @@ def test_one_rank_nccl_pipeline_matches_one_device(card):
             assert all(torch.equal(clips[k].cpu().flatten(0, 1).nan_to_num(7.0),
                                    out["one"][k].nan_to_num(7.0)) for k in clips)
     finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_one_rank_nccl_swin_b_pipeline_matches_one_device(card):
+    """Swin-B at full width through ``make_mesh(1)`` (a one-rank NCCL group):
+    the swin_gemm, window-attention and decode kernels launch as on one
+    device, and the outputs are ``mesh=None``'s bit for bit, in the
+    chained and in the fixed-order layout."""
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_B
+    from multi_camera_3d_pose_estimation_tpu_torch.parallel import ShardedPosePipeline, make_mesh
+
+    shape = (4, 2, 256, 256, 3)
+    frames = torch.from_numpy(np.random.default_rng(1).integers(0, 256, shape,
+                                                                dtype=np.uint8)).to(card)
+    pipe = build_pipeline(SWIN_B, (192, 256), shape, device=card, family="swin")
+    assert not dist.is_initialized()
+    before = os.environ.get("MC3D_SWIN_FIXED")
+    try:
+        mesh = make_mesh(1)
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        sharded = ShardedPosePipeline(pipe.estimator, pipe.cam_stack, mesh=mesh, device=card)
+        for fixed in ("0", "1"):
+            os.environ["MC3D_SWIN_FIXED"] = fixed
+            out = {}
+            for name, p in (("one", pipe), ("mesh", sharded)):
+                sb.swin_gemm.launches = wa.window_attention.launches = 0
+                wa.window_attention_rows.launches = fd.heatmap_decode_raw.launches = 0
+                out[name] = {k: v.cpu() for k, v in p.run(frames).items()}
+                attn = wa.window_attention_rows if fixed == "1" else wa.window_attention
+                assert (sb.swin_gemm.launches, attn.launches,
+                        fd.heatmap_decode_raw.launches) == (96, 24, 1)
+            assert all(torch.equal(out["one"][k].nan_to_num(7.0), out["mesh"][k].nan_to_num(7.0))
+                       for k in out["one"])
+    finally:
+        if before is None:
+            os.environ.pop("MC3D_SWIN_FIXED", None)
+        else:
+            os.environ["MC3D_SWIN_FIXED"] = before
         if dist.is_initialized():
             dist.destroy_process_group()
 
