@@ -114,7 +114,7 @@ Phases (each synchronises the card; any failure exits non-zero):
 20. training at full width, the train CLI's step (`cli.train.build_trainer`):
    HRNet-W32 in bf16 with clip 1.0 -> AdamW, on batches of 192x256 crops
    that `make_crop_batch` cuts on the card (flips on) from host images of
-   512x512 made from a seed (the card's machine has no cv2); at batch 32
+   512x512 made from a seed (host arrays, no image files); at batch 32
    and 128 on one fixed batch each, 3 warm-up and 20 timed steps (steps/s
    and images/s on the host clock, ended by fetching every step's loss),
    the device time of 2 profiled steps over the timed step (the busy
@@ -141,8 +141,8 @@ Phases (each synchronises the card; any failure exits non-zero):
    attention and 1 decode launch) bit for bit equal to the ``.npz`` route,
    each stage's window attention against its plain version on the
    checkpoint's bias table; `cli.estimate_pose_from_video` from the
-   ``.pth`` on 128 frames of phase 19's rig (raw frame stacks: the card's
-   machine has no cv2 to decode videos), its artifacts equal to the
+   ``.pth`` on 128 frames of phase 19's rig (raw frame stacks in place of
+   videos, so no decoder's rounding enters), its artifacts equal to the
    ``.npz`` route's;
 22. the mesh paths (`parallel`) as a one-rank NCCL group: first the CPU
    references in a one-rank gloo group (then destroyed), then
@@ -166,8 +166,8 @@ Phases (each synchronises the card; any failure exits non-zero):
    claimed;
 23. the calibration chain (`calib`) in float64: noisy (0.2 px) projected
    corners of the synthetic 2-camera rig (a 6x9 board, square 3.0; 12 board
-   poses per camera, 10 in front of both; no images: the card's machine has
-   no cv2), `calibrate_camera` per camera and `stereo_calibrate` on the card,
+   poses per camera, 10 in front of both; no images: the corners are
+   projected), `calibrate_camera` per camera and `stereo_calibrate` on the card,
    every LM solve under ``torch.cuda.set_sync_debug_mode("error")`` (no host
    sync inside the steps) and timed (seconds, steps/s, the last cost), each
    result against the port's own CPU run and against the truth; the rig
@@ -207,8 +207,29 @@ Phases (each synchronises the card; any failure exits non-zero):
    phases 7 and 10; frames/s and ``torch.cuda.max_memory_allocated`` of
    each path and every kernel's time against its bound, each line beside
    the card's name and power limit;
-26. one JSON line with every kernel (the phase-25 rows named ``*_w48`` and
-   ``*_swin_l``; the others with their launches on phases 15-17 and 19-25),
+26. accuracy from trained weights (the JAX package's accuracy drills, the
+   port's ``examples``): HRNet-W32 trained by the accuracy harness (150 of
+   the flagship recipe's 5000 f32 steps: batch 8, warmup+cosine; the
+   CenterNet detector 100), its weights saved and built back in bf16, and
+   deployed behind the detector on the harness's validation clip (16
+   frames x 2 cameras of 256x256) three ways: (a) the JAX recipe's deploy
+   (f32, flip-TTA, DARK, kernels off), (b) bf16, flip-TTA, the default
+   decode, kernels off, (c) as (b) with the stage-1 and decode kernels
+   (counts set to 0 just before each deploy and read just after: 8
+   Bottleneck and 1 decode launch per forward in (c), none in (a) and
+   (b)); MPJPE raw, median and refined and the 2D error of each, the same
+   three at random init; (c)'s mean errors within 5% of (b)'s (joint by
+   joint printed), each stage-1 block and the decode against their plain
+   versions on the trained weights' inputs from the clip (phase 4's
+   tolerances), (c)'s 2D error against random init's printed; then the
+   train drill (``examples.train_synthetic_coco``, 200 steps: trained
+   error at most 1/2 of random init's) and the demo's steps 1-6
+   (``examples.synthetic_demo`` at its defaults: ``.mp4`` videos written
+   and read back through cv2, the estimate and refine commands; raw MPJPE
+   at most twice the JAX demo's run, refined at most 5% above raw), cv2's
+   Video I/O build line printed;
+27. one JSON line with every kernel (the phase-25 rows named ``*_w48`` and
+   ``*_swin_l``; the others with their launches on phases 15-17 and 19-26),
    the script's wall time, the card's line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -225,6 +246,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -1808,8 +1830,7 @@ TRAIN_CHECK_BATCH = 8
 
 def train_images(n: int, seed: int):
     """``n`` host images (n, 512, 512, 3) uint8 from a seed, each with a box
-    and 17 visible keypoints inside it (the card's machine has no cv2, so no
-    image files)."""
+    and 17 visible keypoints inside it (host arrays, no image files)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1904,10 +1925,11 @@ def check_train_card_vs_cpu(dev) -> dict:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def check_bottleneck_blocks(est, block, dev, label: str = ""):
+def check_bottleneck_blocks(est, block, dev, label: str = "", boxes=None):
     """Each stage-1 Bottleneck block through the kernel against its plain
     version, on the inputs that ``est`` (the stage-1 and decode kernels on)
-    gives the chain for ``block`` (T, C, H, W, 3) uint8 on the card.
+    gives the chain for ``block`` (T, C, H, W, 3) uint8 on the card, cropped
+    to ``boxes`` (T·C, 4) (the full frames where None).
     Returns (the stem output x (T·C, h, w, 64) NHWC, each block's input on
     the plain path and the chain's plain output, the heatmaps with the
     kernels on, each block's max |kernel - plain|)."""
@@ -1918,7 +1940,8 @@ def check_bottleneck_blocks(est, block, dev, label: str = ""):
     T_, C_, H_, W_ = block.shape[:4]
     model, blocks = est.model, est.fused_stage1.blocks
     frames = block.reshape(T_ * C_, H_, W_, 3).to(torch.bfloat16) / 255.0
-    boxes = torch.tensor([0.0, 0.0, W_, H_], device=dev).expand(T_ * C_, 4)
+    if boxes is None:
+        boxes = torch.tensor([0.0, 0.0, W_, H_], device=dev).expand(T_ * C_, 4)
     errs = []
     with torch.inference_mode():
         crops, _, _ = preprocess_crops(frames, boxes, est.input_size)
@@ -2309,8 +2332,9 @@ def run_convert_cli(pth: str, name: str, npz: str, dev) -> dict:
 
 class FrameStackReader:
     """`io.frames.VideoReader`'s interface over a ``.npy`` frame stack
-    (T, H, W, 3) uint8 RGB at ``path + ".npy"``: the card's machine has no
-    cv2 to decode a video, so phase 21 stores its recordings as raw frames."""
+    (T, H, W, 3) uint8 RGB at ``path + ".npy"``: phase 21 stores its
+    recordings as raw frames, so that the frames it estimates from are the
+    frames it wrote (phase 26 writes and reads real ``.mp4`` files)."""
 
     def __init__(self, path: str, prefetch: int = 16, bgr: bool = False):
         import numpy as np
@@ -2526,7 +2550,7 @@ def run_pth_phase(dev, blocks_u8, phase3_fps: float) -> dict:
         on_disk = [np.load(os.path.join(tmp, "pth", f"{k}.npy"))
                    for k in ("kpts_2d", "heatmaps_2d", "kpts_3d")]
         log(f"  estimate_pose_from_video(checkpoint=.pth): {PTH_FRAMES} frames x {C} cameras "
-            f"(raw frame stacks: the card's machine has no cv2) in {res['estimate_pth_s']:.2f} s "
+            f"(raw frame stacks) in {res['estimate_pth_s']:.2f} s "
             f"(.npz route {res['estimate_npz_s']:.2f} s), launches "
             f"{res['launches']['estimate_pth']}; kpts_2d {on_disk[0].shape}")
         check(res["launches"]["estimate_pth"]["bottleneck"] == 4 * nb
@@ -3435,6 +3459,386 @@ def run_published_widths_phase(dev, gen, blocks_u8, card: str) -> dict:
     return res
 
 
+# Phase 26: accuracy from trained weights (the JAX package's accuracy drills).
+ACC_MODEL = "coco_hrnet_w32"
+# The phase's budgets: the flagship's recipe (batch 8, warmup+cosine) at
+# 150 of its 5000 steps, the train drill at 200 of its 3000, the demo at
+# the JAX demo's defaults.  W32 does not train in a smoke run's time: at
+# 150 / 300 / 600 recipe steps its 2D error through the kernels was
+# 37.3-47.2 / 33.4 / 32.8 px (random init 51.7-53.6), so the flagship drill
+# holds what its shapes test (the launches, each kernel against its plain
+# version on the clip, (c) against (b) on the means).  The train drill's
+# test_small_128 trains in 200 steps and runs the same stage-1 chain
+# (Bottleneck(cin, 64) -> 256, cin 32 in block 0) and the same decode: the
+# holds on trained weights are made there.  The runs of record use the
+# examples' budgets.
+ACC_BUDGET = {"pose_steps": 150, "det_steps": 100, "frames": 16, "train_cli_steps": 200,
+              "demo_steps": 400, "demo_frames": 48}
+# The same bf16 weights with the stage-1 and decode kernels (c) against
+# cuDNN and the plain decode (b): the mean 2D and raw 3-D errors within
+# ACC_REL of (b)'s (measured 0.0-3.5% on W32 from 150 to 5000 steps).
+ACC_REL = 0.05
+# (p) is (c) with each kernel's wrapper computing its plain version on the
+# card (`plain_kernels`): the same pipeline, the kernels' arithmetic in
+# plain PyTorch.  Joint by joint no two bf16 paths agree to 99% within 0.5
+# px: the maps are bf16, so a peak's neighbours often tie, and the default
+# decode's ±¼-pixel shift (the sign of their difference) and the argmax
+# then follow any rounding.  On the train drill's 2176 trained joints 0.891
+# stayed within 0.5 px between (p) and (b), neither with a kernel, and
+# 0.887 between (c) and (p) (W32 at 150 steps: 0.436 and 0.482 of 544).
+# Held on the trained weights: the share of (c) against (p) within
+# ACC_JOINT_TOL px at least that of (p) against (b) less ACC_JOINT_MARGIN,
+# i.e. the kernels move joints no more than cuDNN's stage 1 moves them from
+# the same arithmetic done plainly.
+ACC_JOINT_TOL = 0.5
+ACC_JOINT_MARGIN = 0.03
+# Through the kernels, the train drill's trained 2D error is at most
+# 1/TRAINED_RANDOM_RATIO of random init's (1/10.8 measured without kernels).
+TRAINED_RANDOM_RATIO = 5.0
+# The example's own hold (its estimators, no kernel): at most 1/2
+# (measured 1/10.8 at 200 steps, 1/38.7 at 3000).
+TRAIN_CLI_RANDOM_RATIO = 2.0
+TRAIN_EVAL_N = 128  # held-out images the train drill's weights are scored on
+# The JAX demo's own run (examples/synthetic_demo.py --cpu, 48 frames, 400
+# steps): raw triangulation 3.48 mean / 3.42 median world units, refined
+# the same (its one refinement window is frozen at the 2D noise floor).
+# Held: raw at most twice that run's mean (random init's is of order 150;
+# the port measured 4.13-4.95 in five runs on an H100), and the refined
+# mean at most 5% above the raw one (equal where the window freezes).
+DEMO_RAW_MAX = 2 * 3.48
+DEMO_REFINED_REL = 1.05
+# The JAX package's numbers on a TPU v5e (PARITY.md, 5000 pose steps, 400
+# detector steps, 48 frames; cm, as the harness reports them).
+PARITY_W32 = {"mpjpe_3d": 0.98, "mpjpe_3d_median": 0.95, "mpjpe_3d_refined": 1.16,
+              "px_err_2d": 0.56}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block the stage-1 and decode wrappers compute their plain
+    versions on the card (no launch, no count): path (p) of phase 26."""
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
+
+    saved = bn._launch, fd._launch
+    bn._launch, fd._launch = bn.bottleneck_block_plain, fd.heatmap_decode_raw_plain
+    try:
+        yield
+    finally:
+        bn._launch, fd._launch = saved
+
+
+def joint_gaps(xy_x, xy_y) -> dict:
+    """Per-joint distances between two decodes of the same joints (..., 2):
+    the shares within 0.5, 1 and 2 px, the 99th percentile and the largest."""
+    import numpy as np
+
+    dist = np.linalg.norm(np.asarray(xy_x, np.float64) - np.asarray(xy_y, np.float64), axis=-1)
+    return {"n": int(dist.size), **{f"within_{t:g}": float((dist <= t).mean()) for t in
+                                    (0.5, 1.0, 2.0)},
+            "p99": float(np.percentile(dist, 99)), "max": float(dist.max())}
+
+
+def log_gaps(label: str, gaps: dict) -> None:
+    log(f"  {label}, {gaps['n']} joints: within 0.5 / 1 / 2 px {gaps['within_0.5']:.4f} / "
+        f"{gaps['within_1']:.4f} / {gaps['within_2']:.4f}, p99 {gaps['p99']:.4f} px, largest "
+        f"{gaps['max']:.4f} px")
+
+
+def check_kernel_launches(label: str, launches: dict, way: str, forwards: int) -> None:
+    """(c): 4 Bottleneck launches per model forward and 1 decode launch per
+    flip-TTA pair; (a), (b) and (p): no launch."""
+    if way == "c":
+        check(launches["bottleneck"] == 4 * forwards and launches["heatmap_decode"] == forwards // 2
+              and launches["swin_gemm"] == launches["window_attention"]
+              == launches["window_attention_rows"] == 0,
+              f"{label} (c): 4 Bottleneck launches per forward and 1 decode launch per flip "
+              f"pair, {forwards} forwards")
+    else:
+        check(not any(launches.values()), f"{label} ({way}) launches no kernel")
+
+
+def deploy_ways(dev, f32_model, bf16_model, detector, scene, input_size, n_frames: int,
+                label: str) -> dict:
+    """One pose model's weights deployed behind ``detector`` on the harness's
+    validation clip four ways: (a) the JAX recipe (f32, flip-TTA, DARK,
+    kernels off), (b) bf16, flip-TTA, the default decode, kernels off, (c)
+    as (b) with the stage-1 and decode kernels, (p) as (c) with each kernel
+    computing its plain version.  Every count is set to 0 just before each
+    deploy and read just after.  Returns {way: (metrics, the pipeline's
+    output, the clip, launches, seconds)}."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.training import harness
+
+    kernels = {"use_fused_stage1": True, "use_fused_decode": True}
+    ways = {"a": (f32_model, {"decode_mode": "dark"}), "b": (bf16_model, {}),
+            "c": (bf16_model, kernels), "p": (bf16_model, kernels)}
+    counters = kernel_counters()
+    res = {}
+    for way, (model, kw) in ways.items():
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with plain_kernels() if way == "p" else contextlib.nullcontext():
+            metrics, out, clip = harness._deploy_and_score(
+                model, input_size, detector, scene, n_frames, 0, "heatmap", device=dev,
+                flip_test=True, **kw)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        res[way] = (metrics, out, clip, launches, dt)
+        log(f"  {label} ({way}): mpjpe_3d {metrics['mpjpe_3d']:.4f} cm (median "
+            f"{metrics['mpjpe_3d_median']:.4f}, refined {metrics['mpjpe_3d_refined']:.4f}), "
+            f"px_err_2d {metrics['px_err_2d']:.4f} px, flip shift/noshift "
+            f"{metrics['px_err_flip_shift']:.4f}/{metrics['px_err_flip_noshift']:.4f} px, "
+            f"det_tight_frac {metrics['det_tight_frac']:.3f}; {dt:.2f} s; launches {launches}")
+    return res
+
+
+def run_flagship_drill(dev, pose_steps: int, det_steps: int, n_frames: int,
+                       workdir: str) -> dict:
+    """HRNet-W32 and the CenterNet (top-1) trained by the accuracy harness
+    (its flagship recipe) for ``pose_steps`` / ``det_steps``, resumed from
+    ``workdir``'s files where a harness run left them, the weights saved and
+    built back in bf16, and scored on ``n_frames`` x 2 cameras four ways
+    (`deploy_ways`), then random init's the same way.  Held: the launches,
+    each stage-1 block and the decode against their plain versions on the
+    trained weights' inputs from the clip, and (c) against (b) on the means.
+    Printed: the per-joint gaps of (c) to (p) and (b), and of (p) to (b),
+    and the trained 2D error against random init's (at this budget W32's
+    maps are still near random init's: `run_train_cli_drill` holds both on
+    trained weights)."""
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.models.convert import save_checkpoint_npz
+    from multi_camera_3d_pose_estimation_tpu_torch.models.registry import build_estimator
+    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import TopDownEstimator
+    from multi_camera_3d_pose_estimation_tpu_torch.training import harness
+
+    t0 = time.perf_counter()
+    scene, detector, det_loss, model, input_size, pose_loss = harness._train_models(
+        n_cams=2, seed=0, det_steps=det_steps, pose_steps=pose_steps, pose_family="heatmap",
+        pose_model_name=ACC_MODEL, distortion=None, hard=False, schedule="auto",
+        workdir=workdir, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    log(f"{ACC_MODEL}: {pose_steps} pose steps (batch 8, f32, warmup+cosine) "
+        f"and {det_steps} CenterNet steps in {train_s:.1f} s (checkpoints in {workdir}, resumed "
+        f"where present); last losses pose {pose_loss}, detector {det_loss}")
+    path = os.path.join(workdir, "flagship_trained.npz")
+    save_checkpoint_npz(model, path, "hrnet")
+    bf16 = build_estimator(ACC_MODEL, checkpoint=path, device=dev).model
+    trained = deploy_ways(dev, model, bf16, detector, scene, input_size, n_frames, "trained")
+    untrained = deploy_ways(
+        dev, build_estimator(ACC_MODEL, seed=3, dtype=torch.float32, device=dev).model,
+        build_estimator(ACC_MODEL, seed=3, device=dev).model, detector, scene, input_size,
+        n_frames, "random init")
+
+    # The pipeline's block and the flip-shift pair, each through flip-TTA.
+    for name, r in (("trained", trained), ("random init", untrained)):
+        for way in "abcp":
+            check_kernel_launches(f"W32 {name}", r[way][3], way, forwards=6)
+
+    # Each kernel against its plain version on the trained weights' inputs
+    # (full-frame crops of the clip the deploys scored, as phase 4 holds
+    # random weights).
+    est = TopDownEstimator(bf16, input_size=input_size, use_fused_stage1=True,
+                           use_fused_decode=True, device=dev)
+    clip = torch.as_tensor(trained["c"][2], device=dev)
+    _, _, heat, block_errs = check_bottleneck_blocks(est, clip, dev, "trained W32 ")
+    _, _, dec_err = check_decode(est, heat, "trained W32 ")
+    del heat, est, clip
+
+    def xy(way):
+        return trained[way][1]["kpts_2d"][:, :, :2].float().cpu().numpy()
+
+    gaps = {"c_p": joint_gaps(xy("c"), xy("p")), "c_b": joint_gaps(xy("c"), xy("b")),
+            "p_b": joint_gaps(xy("p"), xy("b"))}
+    for key, what in (("c_p", "(c) against (p)"), ("c_b", "(c) against (b)"),
+                      ("p_b", "(p) against (b), no kernel on either")):
+        log_gaps(f"W32 trained {what}", gaps[key])
+    mb, mc = trained["b"][0], trained["c"][0]
+    rel = {k: abs(mc[k] - mb[k]) / mb[k] for k in ("px_err_2d", "mpjpe_3d")}
+    ratio = untrained["c"][0]["px_err_2d"] / mc["px_err_2d"]
+    log(f"  W32 trained (c) against (b): px_err_2d {mc['px_err_2d']:.4f} vs "
+        f"{mb['px_err_2d']:.4f} ({rel['px_err_2d']:.4f} relative), mpjpe_3d "
+        f"{mc['mpjpe_3d']:.4f} vs {mb['mpjpe_3d']:.4f} cm ({rel['mpjpe_3d']:.4f} relative; at "
+        f"most {ACC_REL})")
+    log(f"  W32 random init through the kernels: px_err_2d {untrained['c'][0]['px_err_2d']:.4f} "
+        f"px, {ratio:.2f}x the trained after {pose_steps} steps (not yet trained; the ratio is "
+        f"held on the train drill's weights)")
+    ma = trained["a"][0]
+    log(f"  (a), the JAX recipe's deploy, beside PARITY.md (TPU v5e, 5000 steps at batch 8): "
+        f"mpjpe_3d {ma['mpjpe_3d'] * 10:.3f} mm (PARITY {PARITY_W32['mpjpe_3d'] * 10:.1f}), "
+        f"median {ma['mpjpe_3d_median'] * 10:.3f} mm ({PARITY_W32['mpjpe_3d_median'] * 10:.1f}), "
+        f"refined {ma['mpjpe_3d_refined'] * 10:.3f} mm ({PARITY_W32['mpjpe_3d_refined'] * 10:.1f}),"
+        f" px_err_2d {ma['px_err_2d']:.4f} px ({PARITY_W32['px_err_2d']}) after {pose_steps} "
+        f"steps")
+    check(all(v <= ACC_REL for v in rel.values()),
+          f"W32: (c)'s mean 2D and raw 3-D errors within {ACC_REL} of (b)'s")
+    check(all(math.isfinite(r[w][0][k]) for r in (trained, untrained) for w in "abcp"
+              for k in ("mpjpe_3d", "px_err_2d")), "finite accuracy metrics")
+
+    def keep(r):
+        return {w: {**{k: v for k, v in m.items() if isinstance(v, float)}, "seconds": dt}
+                for w, (m, _, _, _, dt) in r.items()}
+
+    return {"pose_steps": pose_steps, "det_steps": det_steps, "frames": n_frames, "train_s": train_s,
+            "pose_loss": pose_loss, "det_loss": det_loss, "trained": keep(trained),
+            "random_init": keep(untrained), "joint_gaps": gaps, "c_vs_b_rel": rel,
+            "random_ratio": ratio, "bottleneck_max_abs_err": max(block_errs),
+            "decode_max_abs_err": dec_err,
+            "launches": {"flagship_trained_c": trained["c"][3],
+                         "flagship_random_c": untrained["c"][3]}}
+
+
+def run_train_cli_drill(dev, steps: int, workdir: str) -> dict:
+    """`examples.train_synthetic_coco` at ``steps``: the train command on a
+    generated COCO set of 256 images under ``workdir``, and the example's
+    score (its estimators, no kernel; trained at most
+    1/TRAIN_CLI_RANDOM_RATIO of random init's error).  Then the same weights
+    and random init's, bf16 with flip-TTA, scored on TRAIN_EVAL_N held-out
+    images three ways: (b) no kernel, (c) the stage-1 and decode kernels,
+    (p) as (c) with each kernel computing its plain version.  Held: (c)'s
+    launches, the trained error through the kernels at most
+    1/TRAINED_RANDOM_RATIO of random init's, (c) against (b) on the mean,
+    (c) against (p) joint by joint, and each stage-1 block and the decode
+    against their plain versions on the trained weights' crops."""
+    import numpy as np
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.examples import train_synthetic_coco as tsc
+    from multi_camera_3d_pose_estimation_tpu_torch.models.registry import build_estimator
+
+    args = tsc.build_parser().parse_args(["--steps", str(steps), "--device", str(dev)])
+    t0 = time.perf_counter()
+    res = tsc.score(args, *tsc.train_checkpoint(args, workdir))
+    ckpt = os.path.join(workdir, "model.npz")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"train drill ({res['model']}, {steps} steps, bf16): px_err {res['px_err_trained']} "
+        f"trained against {res['px_err_random_init']} at random init (at most 1/"
+        f"{TRAIN_CLI_RANDOM_RATIO:g}); training {res['train_wall_s']} s, drill "
+        f"{res['seconds']:.1f} s")
+    check(res["px_err_trained"] * TRAIN_CLI_RANDOM_RATIO <= res["px_err_random_init"],
+          f"the train drill's trained error is at most 1/{TRAIN_CLI_RANDOM_RATIO:g} of random "
+          f"init's")
+
+    frames, boxes, truth = tsc.held_out_set(TRAIN_EVAL_N, args.size, args.size)
+    kernels = {"use_fused_stage1": True, "use_fused_decode": True}
+    counters = kernel_counters()
+    xy, px, launches = {}, {}, {}
+    for name, weights in (("trained", {"checkpoint": ckpt}), ("random", {"seed": 3})):
+        for way, kw in (("b", {}), ("c", kernels), ("p", kernels)):
+            est = build_estimator(args.model, device=dev, flip_test=True, **weights, **kw)
+            for fn in counters.values():
+                fn.launches = 0
+            with plain_kernels() if way == "p" else contextlib.nullcontext():
+                out = est.predict_batch(frames, boxes)["keypoints"][..., :2]
+                xy[name, way] = out.double().cpu().numpy()
+            launches[name, way] = {k: fn.launches for k, fn in counters.items()}
+            px[name, way] = float(np.linalg.norm(xy[name, way] - truth, axis=-1).mean())
+            log(f"  {res['model']} {name} ({way}): px_err {px[name, way]:.4f} on {TRAIN_EVAL_N} "
+                f"held-out images (flip-TTA); launches {launches[name, way]}")
+            check_kernel_launches(f"{res['model']} {name}", launches[name, way], way, forwards=2)
+            del est
+
+    est = build_estimator(args.model, checkpoint=ckpt, device=dev, **kernels)
+    _, _, heat, block_errs = check_bottleneck_blocks(
+        est, torch.as_tensor(frames[:, None], device=dev), dev, f"trained {res['model']} ",
+        boxes=torch.as_tensor(boxes, dtype=torch.float32, device=dev))
+    _, _, dec_err = check_decode(est, heat, f"trained {res['model']} ")
+    del heat, est
+
+    gaps = {"c_p": joint_gaps(xy["trained", "c"], xy["trained", "p"]),
+            "c_b": joint_gaps(xy["trained", "c"], xy["trained", "b"]),
+            "p_b": joint_gaps(xy["trained", "p"], xy["trained", "b"])}
+    for key, what in (("c_p", "(c) against (p)"), ("c_b", "(c) against (b)"),
+                      ("p_b", "(p) against (b), no kernel on either")):
+        log_gaps(f"{res['model']} trained {what}", gaps[key])
+    ratio = px["random", "c"] / px["trained", "c"]
+    rel = abs(px["trained", "c"] - px["trained", "b"]) / px["trained", "b"]
+    log(f"  through the kernels: trained px_err {px['trained', 'c']:.4f}, random init "
+        f"{px['random', 'c']:.4f} ({ratio:.2f}x, at least {TRAINED_RANDOM_RATIO:g}x); (c) "
+        f"against (b) {rel:.4f} relative (at most {ACC_REL}); joints within {ACC_JOINT_TOL} px "
+        f"(c)-(p) {gaps['c_p'][f'within_{ACC_JOINT_TOL:g}']:.4f} against (p)-(b) "
+        f"{gaps['p_b'][f'within_{ACC_JOINT_TOL:g}']:.4f} (at most {ACC_JOINT_MARGIN} below)")
+    check(ratio >= TRAINED_RANDOM_RATIO,
+          f"through the kernels the trained 2D error is at most 1/{TRAINED_RANDOM_RATIO:g} of "
+          f"random init's")
+    check(rel <= ACC_REL, f"{res['model']}: (c)'s mean 2D error within {ACC_REL} of (b)'s")
+    within = f"within_{ACC_JOINT_TOL:g}"
+    check(gaps["c_p"][within] >= gaps["p_b"][within] - ACC_JOINT_MARGIN,
+          f"on trained weights (c) keeps as many joints within {ACC_JOINT_TOL} px of (p) as (p) "
+          f"keeps of (b), less {ACC_JOINT_MARGIN}")
+    res["kernels"] = {"px_err": {f"{n}_{w}": v for (n, w), v in px.items()},
+                      "random_ratio": ratio, "c_vs_b_rel": rel, "joint_gaps": gaps,
+                      "bottleneck_max_abs_err": max(block_errs), "decode_max_abs_err": dec_err}
+    res["launches"] = {"train_drill_trained_c": launches["trained", "c"],
+                       "train_drill_random_c": launches["random", "c"]}
+    return res
+
+
+def run_demo_drill(dev, steps: int, n_frames: int) -> dict:
+    """`examples.synthetic_demo` steps 1-6 on the card, as its ``run_demo``
+    calls them: the rig's ``.mp4`` videos written and read back through cv2,
+    the 5-joint model trained, the estimate command on the videos, the
+    refine command; the 3-D errors held as the JAX demo's own run shows them
+    (DEMO_RAW_MAX, DEMO_REFINED_REL).  Step 7 needs matplotlib, which the
+    card's machine lacks."""
+    import cv2
+    import numpy as np
+    from multi_camera_3d_pose_estimation_tpu_torch.examples import synthetic_demo as demo
+
+    info = cv2.getBuildInformation()
+    video = info[info.find("Video I/O"):].split("\n\n")[0]
+    log(f"cv2 {cv2.__version__}; " + " | ".join(line.strip() for line in video.splitlines()))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        traj = demo.simulate_trajectory(n_frames)
+        cams, videos, rec_dir = demo.write_rig(tmp, traj, rng)
+        counts = []
+        for path in videos:
+            cap = cv2.VideoCapture(path)
+            n = 0
+            while cap.read()[0]:
+                n += 1
+            cap.release()
+            counts.append(n)
+        ckpt = demo.train_model(tmp, traj, cams, rng, steps, str(dev))
+        raw, raw_median = demo.estimate(tmp, videos, rec_dir, ckpt, traj, str(dev))
+        _, refined, refined_median = demo.refine(tmp, rec_dir, traj, str(dev))
+    dt = time.perf_counter() - t0
+    log(f"demo ({n_frames} frames, {steps} steps): raw MPJPE {raw:.4f} / median "
+        f"{raw_median:.4f}, refined {refined:.4f} / median {refined_median:.4f} world units "
+        f"(the JAX demo's CPU run: 3.48 / 3.42, refined the same); frames read back per video "
+        f"{counts}; {dt:.1f} s")
+    check(counts == [n_frames] * len(counts), "cv2 reads back every frame of the demo's videos")
+    check(raw <= DEMO_RAW_MAX, f"the demo's raw MPJPE at most {DEMO_RAW_MAX}")
+    check(refined <= DEMO_REFINED_REL * raw,
+          f"the demo's refined MPJPE at most {DEMO_REFINED_REL} x the raw one")
+    return {"mpjpe_raw": raw, "mpjpe_raw_median": raw_median, "mpjpe_refined": refined,
+            "mpjpe_refined_median": refined_median, "seconds": dt, "cv2": cv2.__version__}
+
+
+def run_accuracy_phase(dev, budget: dict, workdir: str) -> dict:
+    """Phase 26: the flagship drill, the train drill and the demo at
+    ``budget`` (`ACC_BUDGET`'s keys), their files under ``workdir``."""
+    import torch
+
+    flagship_dir, train_dir = os.path.join(workdir, "flagship"), os.path.join(workdir, "train")
+    os.makedirs(flagship_dir, exist_ok=True)
+    os.makedirs(train_dir, exist_ok=True)
+    res = {"flagship": run_flagship_drill(dev, budget["pose_steps"], budget["det_steps"],
+                                          budget["frames"], flagship_dir)}
+    torch.cuda.empty_cache()
+    res["train_cli"] = run_train_cli_drill(dev, budget["train_cli_steps"], train_dir)
+    torch.cuda.empty_cache()
+    res["demo"] = run_demo_drill(dev, budget["demo_steps"], budget["demo_frames"])
+    res["launches"] = res["flagship"].pop("launches") | res["train_cli"].pop("launches")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3555,8 +3959,14 @@ def main() -> int:
     published = run_published_widths_phase(dev, gen, blocks_u8, card)
     published["seconds"] = time.perf_counter() - t25
     log(f"phase 25 took {published['seconds']:.1f} s")
+    # 26. Accuracy from trained weights: the flagship drill, the train drill, the demo.
+    t26 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        accuracy = run_accuracy_phase(dev, ACC_BUDGET, tmp)
+    accuracy["seconds"] = time.perf_counter() - t26
+    log(f"phase 26 took {accuracy['seconds']:.1f} s")
 
-    # 26. Results.
+    # 27. Results.
     hrnet_rows[0]["flip_path_launches"] = nview["launches"]["bottleneck"]
     hrnet_rows[1]["flip_path_launches"] = nview["launches"]["heatmap_decode"]
     for row in hrnet_rows + swin_rows + fixed_rows_json:
@@ -3584,6 +3994,9 @@ def main() -> int:
         row["launches_phase_25"] = {
             what: sum(n.get(c, 0) for c in ROW_COUNTERS[row["name"]])
             for what, n in published["launches"].items()}
+        row["launches_phase_26"] = {
+            what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
+            for what, n in accuracy["launches"].items()}
     kernels = hrnet_rows + swin_rows + fixed_rows_json + published["rows"]
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
@@ -3611,6 +4024,7 @@ def main() -> int:
                       "last_modules": {k: v for k, v in last.items() if k != "launches"},
                       "published_widths": {k: v for k, v in published.items()
                                            if k not in ("launches", "rows")},
+                      "accuracy": {k: v for k, v in accuracy.items() if k != "launches"},
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -52,8 +52,16 @@ def build_parser():
 
 
 def _report_body_lengths(label: str, trajectory: np.ndarray) -> None:
+    trajectory = torch.as_tensor(trajectory)
+    n_joints = trajectory.shape[-2]
+    if n_joints < 17:
+        # The COCO skeleton's edges reach joint 16 (the JAX CLI's gathers
+        # clamp there and print lengths of the wrong joints).
+        print(f"no body part lengths of {label} {n_joints}-joint trajectory (the COCO "
+              f"skeleton has 17 joints)")
+        return
     print(f"mean and std of {label} body part lengths")
-    for name, vals in get_body_part_lengths(torch.as_tensor(trajectory)).items():
+    for name, vals in get_body_part_lengths(trajectory).items():
         v = vals.numpy()
         print("; ".join([name, str(np.nanmean(v)), str(np.nanstd(v))]))
 

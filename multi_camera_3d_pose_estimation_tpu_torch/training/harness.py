@@ -241,15 +241,28 @@ def run_accuracy_harness(n_frames: int = 32, det_steps: int = 200, pose_steps: i
     to run the block pipeline over (every rank trains the same models from
     the seed, then takes the first rank's weights), or None (one device).
     """
-    from ..io.camera_params import stack_camera_params
-    from ..ops.triangulation import triangulate_nview
-    from ..parallel.pipeline import ShardedPosePipeline
-    from ..refine.interpolation import linear_interpolation
-
     if pose_family not in ("heatmap", "simcc"):
         raise ValueError(f"unknown pose_family '{pose_family}'")
     if det_select not in ("top1", "consistent"):
         raise ValueError(f"unknown det_select '{det_select}'")
+    scene, detector, det_loss, model, input_size, pose_loss = _train_models(
+        n_cams, seed, det_steps, pose_steps, pose_family, pose_model_name, distortion, hard,
+        schedule, workdir, device)
+    detector.select = det_select
+    if pose_family == "simcc":
+        decode_mode = "default"  # DARK is a heatmap-space refinement
+    metrics, _, _ = _deploy_and_score(model, input_size, detector, scene, n_frames, seed,
+                                   pose_family, mesh=mesh, sgd_refine=sgd_refine,
+                                   sgd_kwargs=sgd_kwargs, sgd_variants=sgd_variants,
+                                   device=device, flip_test=flip_test, decode_mode=decode_mode)
+    return {**metrics, "det_loss": det_loss, "pose_loss": pose_loss}
+
+
+def _train_models(n_cams, seed, det_steps, pose_steps, pose_family, pose_model_name, distortion,
+                  hard, schedule, workdir, device):
+    """The harness's scene and its two trainers (resumed from ``workdir``'s
+    files where they exist): (scene, detector, det_loss, pose model,
+    input_size, pose_loss)."""
     scene = SyntheticSceneConfig(n_cams=n_cams, seed=seed, distortion=distortion, hard=hard)
     ckpt = det_ckpt = None
     if workdir:
@@ -261,14 +274,29 @@ def run_accuracy_harness(n_frames: int = 32, det_steps: int = 200, pose_steps: i
         det_ckpt = os.path.join(workdir, f"det_{tag}.npz")
     detector, det_loss = train_synthetic_detector(scene, steps=det_steps,
                                                   checkpoint_path=det_ckpt, device=device)
-    detector.select = det_select
     named = {"model_name": pose_model_name} if pose_model_name else {}
     trainer = train_synthetic_pose if pose_family == "heatmap" else train_synthetic_simcc
     model, input_size, pose_loss = trainer(scene, steps=pose_steps, schedule=schedule,
                                            checkpoint_path=ckpt, device=device, **named)
-    if pose_family == "simcc":
-        decode_mode = "default"  # DARK is a heatmap-space refinement
+    return scene, detector, det_loss, model, input_size, pose_loss
 
+
+def _deploy_and_score(model, input_size, detector, scene, n_frames: int, seed: int,
+                      pose_family: str, mesh=None, sgd_refine: bool = False,
+                      sgd_kwargs: dict | None = None, sgd_variants: dict | None = None,
+                      device="cuda", **estimator_kwargs):
+    """Deploy ``model`` behind ``detector`` in the block pipeline on the
+    scene's validation clip and measure: (the metrics of
+    `run_accuracy_harness` but the losses, the pipeline's output dict, the
+    clip's frames (T, C, H, W, 3) uint8).
+    ``estimator_kwargs`` pass to every `TopDownEstimator` built here (the
+    flip-shift pair sets its own ``flip_test`` and ``flip_shift``)."""
+    from ..io.camera_params import stack_camera_params
+    from ..ops.triangulation import triangulate_nview
+    from ..parallel.pipeline import ShardedPosePipeline
+    from ..refine.interpolation import linear_interpolation
+
+    n_cams = len(scene.cams)
     # The validation clip has its own rng: training draws a data-dependent
     # number of times from scene.rng (none after a full resume).
     scene.rng = np.random.default_rng(seed + 1_000_003)
@@ -285,8 +313,8 @@ def run_accuracy_harness(n_frames: int = 32, det_steps: int = 200, pose_steps: i
             broadcast_from_first([*model.state_dict().values(),
                                   *detector.model.state_dict().values()], mesh)
     decode = "heatmap" if pose_family == "heatmap" else "simcc"
-    est = TopDownEstimator(model, input_size=input_size, decode=decode, flip_test=flip_test,
-                           decode_mode=decode_mode, device=device)
+    est = TopDownEstimator(model, input_size=input_size, decode=decode, device=device,
+                           **estimator_kwargs)
     cam_stack = stack_camera_params(scene.cams)
     pipe = ShardedPosePipeline(est, cam_stack, mesh=mesh, conf_threshold=0.0,
                                detector=detector, device=device)
@@ -306,14 +334,11 @@ def run_accuracy_harness(n_frames: int = 32, det_steps: int = 200, pose_steps: i
         "mpjpe_3d_refined": float(np.nanmean(err3d_ref)),
         "mpjpe_3d_refined_median": float(np.nanmedian(err3d_ref)),
         "px_err_2d": float(np.nanmean(err2d)),
-        "det_loss": det_loss,
-        "pose_loss": pose_loss,
         "pose_family": pose_family,
         "n_frames": n_frames,
         "n_cams": n_cams,
-        "hard": bool(hard),
-        "distortion": bool(distortion is not None
-                           and np.any(np.asarray([c[3] for c in scene.cams]))),
+        "hard": scene.hard,
+        "distortion": bool(np.any(np.asarray([c[3] for c in scene.cams]))),
     }
     if n_cams > 2:
         # The robust n-view solve on the same 2D output: with three or more
@@ -346,11 +371,11 @@ def run_accuracy_harness(n_frames: int = 32, det_steps: int = 200, pose_steps: i
         flat_f32 = flat.astype(np.float32) / 255.0
         proj_flat = proj_all.reshape(-1, 17, 2)
         for name, shift in (("px_err_flip_shift", True), ("px_err_flip_noshift", False)):
-            e = TopDownEstimator(model, input_size=input_size, decode="heatmap", flip_test=True,
-                                 flip_shift=shift, decode_mode=decode_mode, device=device)
+            e = TopDownEstimator(model, input_size=input_size, decode="heatmap", device=device,
+                                 **{**estimator_kwargs, "flip_test": True, "flip_shift": shift})
             k = e.predict_batch(flat_f32, boxes)["keypoints"][..., :2].double().cpu().numpy()
             metrics[name] = float(np.linalg.norm(k - proj_flat, axis=-1).mean())
-    return metrics
+    return metrics, out, frames
 
 
 def _sgd_metrics(gaussians, refined, traj, scene, n_frames, sgd_kwargs, sgd_variants,

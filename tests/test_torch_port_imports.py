@@ -12,7 +12,9 @@ front end (calibration, capture, sync, the configure and record_and_estimate
 CLIs) by name, with cv2 absent as on the card's machine; and the modules the
 card's machine runs without matplotlib (doctor, profiling, keypoint
 conversion, the media runtime's loader, the estimate CLI) by name, with
-matplotlib and cv2 absent.
+matplotlib and cv2 absent; and the accuracy drills (``examples``) by name,
+with cv2, yaml and matplotlib absent and the repository's JAX ``examples``
+blocked.
 """
 
 import os
@@ -229,3 +231,43 @@ print(len(names))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) == 7
+
+
+def test_examples_import_without_jax_or_optional_modules():
+    """The accuracy drills (`examples`), named one by one: no JAX, nothing of
+    the JAX package (nor the repository's own ``examples/``, the JAX
+    scripts), no cv2, yaml or matplotlib until a drill draws, writes or
+    plots; each is a ``python -m`` command with its JAX script's flags
+    and ``--device`` in place of ``--cpu``."""
+    code = """
+import importlib, sys
+for m in ("jax", "multi_camera_3d_pose_estimation_tpu", "examples", "bench", "cv2", "yaml",
+          "matplotlib"):
+    sys.modules[m] = None
+port = "multi_camera_3d_pose_estimation_tpu_torch"
+names = [f"{port}.examples"] + [f"{port}.examples.{m}" for m in (
+    "accuracy_harness", "train_synthetic_coco", "synthetic_demo")]
+for name in names:
+    importlib.import_module(name)
+ex = sys.modules[f"{port}.examples.accuracy_harness"]
+flags = {a.dest for a in ex.build_parser()._actions}
+assert {"pose_steps", "det_steps", "frames", "cams", "family", "model", "device", "out",
+        "distortion", "hard", "det_select", "sgd", "sgd_max_iter", "sgd_variants", "schedule",
+        "workdir"} <= flags and "cpu" not in flags, flags
+tr = sys.modules[f"{port}.examples.train_synthetic_coco"]
+flags = {a.dest for a in tr.build_parser()._actions}
+assert {"steps", "model", "images", "size", "batch_size", "learning_rate", "px_threshold",
+        "device", "out"} <= flags and "cpu" not in flags, flags
+assert ex.build_parser().parse_args([]).device == "cuda"
+leaked = sorted(m for m in sys.modules if (m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2",
+                                                               "yaml", "matplotlib")
+                                           or m.startswith("multi_camera_3d_pose_estimation_tpu."))
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == 4
