@@ -34,6 +34,7 @@ from ..models.registry import build_detector, build_estimator
 from ..ops.triangulation import get_pose_3d
 from ..parallel.mesh import check_mesh, is_first_rank, mesh_barrier
 from ..parallel.pipeline import ShardedPosePipeline
+from ..utils.profiling import span
 
 __all__ = ["estimate_pose_from_video", "run_pipeline_on_videos", "run_pipeline_on_blocks",
            "build_estimate_pipeline"]
@@ -66,22 +67,31 @@ def run_pipeline_on_blocks(pipeline: ShardedPosePipeline, blocks, progress: bool
     ``on_block(frames_block, kpts_2d_block, frame_offset)`` is called when a
     block is read, with the block's valid frames and (n_valid, K, 3, C)
     keypoints.  ``progress`` shows a tqdm bar where tqdm is installed.
+
+    Spans (`utils.profiling.span`; ``block``: the block's index in
+    ``blocks``, as `io.stage_blocks` counts it): ``mc3d.estimate.dispatch``
+    around ``pipeline.run`` and the start of the results' copy,
+    ``mc3d.estimate.drain_wait`` while the host waits for a block's
+    results, ``mc3d.estimate.drain_copy`` over their copy out and
+    ``on_block``.
     """
     out = {k: [] for k in _KEYS}
     n_done = 0
 
     def drain(item):
         nonlocal n_done
-        (host, event), n_valid, frames_block = item
-        if event is not None:
-            event.synchronize()
-        for k in _KEYS:
-            # A copy, so that the pinned buffer returns to the caching host
-            # allocator: a new pinned allocation per block (cudaHostAlloc)
-            # would stall the card.
-            out[k].append(host[k].numpy().copy())
-        if on_block is not None:
-            on_block(frames_block[:n_valid], out["kpts_2d"][-1], n_done)
+        i, (host, event), n_valid, frames_block = item
+        with span("mc3d.estimate.drain_wait", block=i):
+            if event is not None:
+                event.synchronize()
+        with span("mc3d.estimate.drain_copy", block=i):
+            for k in _KEYS:
+                # A copy, so that the pinned buffer returns to the caching
+                # host allocator: a new pinned allocation per block
+                # (cudaHostAlloc) would stall the card.
+                out[k].append(host[k].numpy().copy())
+            if on_block is not None:
+                on_block(frames_block[:n_valid], out["kpts_2d"][-1], n_done)
         n_done += n_valid
 
     iterator = blocks
@@ -93,10 +103,12 @@ def run_pipeline_on_blocks(pipeline: ShardedPosePipeline, blocks, progress: bool
         except ImportError:
             pass
     pending: deque = deque()
-    for block, n_valid in iterator:
+    for i, (block, n_valid) in enumerate(iterator):
         # The frames are kept until the block is read only for ``on_block``.
         keep = block if on_block is not None else None
-        pending.append((_fetch(pipeline.run(block), n_valid), n_valid, keep))
+        with span("mc3d.estimate.dispatch", block=i):
+            fetched = _fetch(pipeline.run(block), n_valid)
+        pending.append((i, fetched, n_valid, keep))
         if len(pending) > max(int(inflight), 0):
             drain(pending.popleft())
     while pending:

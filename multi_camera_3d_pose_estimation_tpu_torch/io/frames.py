@@ -22,6 +22,7 @@ Counterpart of the JAX package's ``io/frames.py``:
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import threading
 import time
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..native import load_mediadec
+from ..utils.profiling import span, tracing
 
 __all__ = ["VideoReader", "frame_generator", "load_frames", "load_image_frames",
            "write_keypoints_to_disk", "BatchedFramePipeline", "stage_blocks"]
@@ -194,17 +196,22 @@ def _fill_ring(host_blocks, free: Queue, filled: Queue, buffers: list, copied: l
     """`stage_blocks`' producer: each host block into a free slot of the
     pinned ring, once that slot's last H2D copy has completed; hands
     ``(slot, n_valid)`` on, then None at the end (or the exception raised).
-    Returns early once ``stop`` is set."""
+    Returns early once ``stop`` is set.  Spans (``block``: the block's index
+    in ``host_blocks``): ``mc3d.stage.slot_wait`` from the block's arrival
+    through its slot's last copy, ``mc3d.stage.fill`` the copy into pinned
+    memory."""
     try:
-        for block, n_valid in host_blocks:
-            slot = free.get()
-            if stop.is_set():
-                return
-            if copied[slot] is not None:
-                copied[slot].synchronize()
+        for i, (block, n_valid) in enumerate(host_blocks):
+            with span("mc3d.stage.slot_wait", block=i):
+                slot = free.get()
+                if stop.is_set():
+                    return
+                if copied[slot] is not None:
+                    copied[slot].synchronize()
             if buffers[slot] is None or tuple(buffers[slot].shape) != block.shape:
                 buffers[slot] = torch.empty(block.shape, dtype=torch.uint8, pin_memory=True)
-            np.copyto(buffers[slot].numpy(), block)
+            with span("mc3d.stage.fill", block=i):
+                np.copyto(buffers[slot].numpy(), block)
             filled.put((slot, n_valid))
         filled.put(None)
     except BaseException as e:  # handed to the consumer, which raises it
@@ -224,6 +231,11 @@ def stage_blocks(host_blocks, device, depth: int = 2, copy_events: list | None =
     event has completed.  With ``copy_events`` (a list), each copy's
     (start, end) timing events are appended to it.  On ``device="cpu"``
     the host block is yielded as a tensor and nothing is pinned.
+
+    Spans (`utils.profiling.span`; ``block``: the block's index in
+    ``host_blocks``), besides the producer's: ``mc3d.stage.input_wait``
+    while this thread waits for a filled slot, ``mc3d.stage.h2d`` around
+    the copy's launch, its device time from the copy's own events.
     """
     device = torch.device(device)
     if device.type == "cpu":
@@ -243,25 +255,27 @@ def stage_blocks(host_blocks, device, depth: int = 2, copy_events: list | None =
     producer = threading.Thread(target=_fill_ring, daemon=True,
                                 args=(host_blocks, free, filled, buffers, copied, stop))
     producer.start()
-    timing = copy_events is not None
     try:
-        while True:
-            item = filled.get()
+        for i in itertools.count():
+            with span("mc3d.stage.input_wait", block=i):
+                item = filled.get()
             if item is None:
                 return
             if isinstance(item, BaseException):
                 raise item
             slot, n_valid = item
+            timing = copy_events is not None or tracing()
             start = torch.cuda.Event(enable_timing=timing)
             end = torch.cuda.Event(enable_timing=timing)
-            with torch.cuda.stream(copy_stream):
+            with span("mc3d.stage.h2d", block=i, device=(start, end)), \
+                    torch.cuda.stream(copy_stream):
                 dev_block = torch.empty(buffers[slot].shape, dtype=torch.uint8, device=device)
                 start.record(copy_stream)
                 dev_block.copy_(buffers[slot], non_blocking=True)
                 end.record(copy_stream)
             copied[slot] = end
             free.put(slot)
-            if timing:
+            if copy_events is not None:
                 copy_events.append((start, end))
             compute = torch.cuda.current_stream(device)
             compute.wait_event(end)

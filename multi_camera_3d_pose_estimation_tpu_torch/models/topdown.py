@@ -26,6 +26,7 @@ from ..ops.fused_decode import fused_heatmap_decode
 from ..ops.heatmap_decode import heatmap_argmax_decode, heatmap_dark_decode
 from ..ops.moments import heatmap_moments
 from ..ops.simcc import simcc_decode
+from ..utils.profiling import span
 from .rtmpose import RTMPose
 from .swin import SwinPose
 
@@ -190,33 +191,42 @@ class TopDownEstimator:
 
 
 def _predict(est: TopDownEstimator, frames: torch.Tensor, bboxes: torch.Tensor) -> dict:
+    """Crop, model and decode of a batch of frames (B, H, W, 3) to image
+    pixels, under the spans ``mc3d.pipeline.crop``, ``mc3d.pipeline.model``
+    (with the flip-TTA pass) and ``mc3d.pipeline.decode``
+    (`utils.profiling.span`, timed on the card where the frames are)."""
+    on_card = frames.is_cuda
     in_w, in_h = est.input_size
-    crops, scale, offset = preprocess_crops(frames, bboxes, est.input_size, est.bbox_padding)
+    with span("mc3d.pipeline.crop", device=on_card):
+        crops, scale, offset = preprocess_crops(frames, bboxes, est.input_size, est.bbox_padding)
     if est.decode == "simcc":
         return _predict_simcc(est, crops, scale, offset)
-    heat = _heatmaps(est, crops)  # (B, K, h, w) f32
-    if est.flip_perm is not None:
-        # Flip-TTA: the mirrored crops, their maps mirrored back (torch.flip:
-        # torch has no negative-step slice) with left/right joints swapped.
-        heat_f = _heatmaps(est, torch.flip(crops, dims=[2]))
-        heat_f = torch.flip(heat_f, dims=[-1])[:, est.flip_perm]
-        if est.flip_shift:
-            # The mirrored peak lands (s-1)/s heatmap px left of the truth
-            # under the x = h·stride decode; one pixel right is the best
-            # integer correction.
-            heat_f = torch.cat([heat_f[..., :1], heat_f[..., :-1]], dim=-1)
-        heat = 0.5 * (heat + heat_f)
-    if est.use_fused_decode:
-        moments, xy_hm, score = fused_heatmap_decode(heat, threshold=est.heatmap_threshold)
-    else:
-        if est.decode_mode == "dark":
-            xy_hm, score = heatmap_dark_decode(heat)
+    with span("mc3d.pipeline.model", device=on_card):
+        heat = _heatmaps(est, crops)  # (B, K, h, w) f32
+        if est.flip_perm is not None:
+            # Flip-TTA: the mirrored crops, their maps mirrored back
+            # (torch.flip: torch has no negative-step slice) with left/right
+            # joints swapped.
+            heat_f = _heatmaps(est, torch.flip(crops, dims=[2]))
+            heat_f = torch.flip(heat_f, dims=[-1])[:, est.flip_perm]
+            if est.flip_shift:
+                # The mirrored peak lands (s-1)/s heatmap px left of the
+                # truth under the x = h·stride decode; one pixel right is
+                # the best integer correction.
+                heat_f = torch.cat([heat_f[..., :1], heat_f[..., :-1]], dim=-1)
+            heat = 0.5 * (heat + heat_f)
+    with span("mc3d.pipeline.decode", device=on_card):
+        if est.use_fused_decode:
+            moments, xy_hm, score = fused_heatmap_decode(heat, threshold=est.heatmap_threshold)
         else:
-            xy_hm, score = heatmap_argmax_decode(heat)
-        moments = heatmap_moments(heat, threshold=est.heatmap_threshold)
-    stride = in_h / heat.shape[-2]
-    return _pushforward(xy_hm * stride, score, moments[..., :2] * stride,
-                        moments[..., 2:] * stride * stride, scale, offset)
+            if est.decode_mode == "dark":
+                xy_hm, score = heatmap_dark_decode(heat)
+            else:
+                xy_hm, score = heatmap_argmax_decode(heat)
+            moments = heatmap_moments(heat, threshold=est.heatmap_threshold)
+        stride = in_h / heat.shape[-2]
+        return _pushforward(xy_hm * stride, score, moments[..., :2] * stride,
+                            moments[..., 2:] * stride * stride, scale, offset)
 
 
 def _predict_simcc(est: TopDownEstimator, crops: torch.Tensor, scale, offset) -> dict:
@@ -224,21 +234,24 @@ def _predict_simcc(est: TopDownEstimator, crops: torch.Tensor, scale, offset) ->
     covariance: SimCC's two axes are independent classifiers, so the
     per-axis softmax variances (bins², /split_ratio² = 4 to crop px²) are
     the full second moments and the cross term is 0."""
-    simcc_x, simcc_y = est.model(crops.permute(0, 3, 1, 2))
-    if est.flip_perm is not None:
-        # Average the mirrored pass in probability space: softmaxes are not
-        # logit-additive, and softmax(log p) = p re-enters the decode.
-        fx, fy = est.model(torch.flip(crops, dims=[2]).permute(0, 3, 1, 2))
-        px = 0.5 * (torch.softmax(simcc_x, -1)
-                    + torch.flip(torch.softmax(fx, -1)[:, est.flip_perm], dims=[-1]))
-        py = 0.5 * (torch.softmax(simcc_y, -1) + torch.softmax(fy, -1)[:, est.flip_perm])
-        simcc_x, simcc_y = torch.log(px + 1e-12), torch.log(py + 1e-12)
-    xy_crop, score = simcc_decode(simcc_x, simcc_y)
-    var_x = _simcc_axis_var(simcc_x) / 4.0  # split_ratio²
-    var_y = _simcc_axis_var(simcc_y) / 4.0
-    zeros = torch.zeros_like(var_x)
-    return _pushforward(xy_crop, score, xy_crop, torch.stack([var_x, zeros, zeros, var_y], -1),
-                        scale, offset)
+    on_card = crops.is_cuda
+    with span("mc3d.pipeline.model", device=on_card):
+        simcc_x, simcc_y = est.model(crops.permute(0, 3, 1, 2))
+        if est.flip_perm is not None:
+            # Average the mirrored pass in probability space: softmaxes are
+            # not logit-additive, and softmax(log p) = p re-enters the decode.
+            fx, fy = est.model(torch.flip(crops, dims=[2]).permute(0, 3, 1, 2))
+            px = 0.5 * (torch.softmax(simcc_x, -1)
+                        + torch.flip(torch.softmax(fx, -1)[:, est.flip_perm], dims=[-1]))
+            py = 0.5 * (torch.softmax(simcc_y, -1) + torch.softmax(fy, -1)[:, est.flip_perm])
+            simcc_x, simcc_y = torch.log(px + 1e-12), torch.log(py + 1e-12)
+    with span("mc3d.pipeline.decode", device=on_card):
+        xy_crop, score = simcc_decode(simcc_x, simcc_y)
+        var_x = _simcc_axis_var(simcc_x) / 4.0  # split_ratio²
+        var_y = _simcc_axis_var(simcc_y) / 4.0
+        zeros = torch.zeros_like(var_x)
+        return _pushforward(xy_crop, score, xy_crop,
+                            torch.stack([var_x, zeros, zeros, var_y], -1), scale, offset)
 
 
 def _simcc_axis_var(logits: torch.Tensor) -> torch.Tensor:

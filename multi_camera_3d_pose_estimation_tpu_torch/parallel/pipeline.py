@@ -31,6 +31,7 @@ from ..models.topdown import _predict
 from ..ops.triangulation import triangulate_nview, triangulate_top2
 from ..refine.costs import likelihood_cost, smoothness_cost
 from ..refine.optimizer import RefineConfig, _clip_adam_step
+from ..utils.profiling import span
 from .mesh import all_reduce_sum, check_mesh, gather_rows, local_rows
 
 __all__ = ["ShardedPosePipeline", "sharded_refine_step", "run_clips_batched"]
@@ -91,18 +92,23 @@ class ShardedPosePipeline:
 
     @torch.inference_mode()
     def run(self, frames, bboxes=None) -> dict:
-        """frames (T, C, H, W, 3) uint8 or float, bboxes (T, C, 4) or None."""
-        frames = self._rows(frames)
-        use_detector = bboxes is None and self.has_detector
-        bboxes = self._full_frame(frames) if bboxes is None else self._rows(bboxes).float()
-        frames = _pixels(frames)
-        if use_detector:
-            bboxes = _detect_boxes(self.detector, frames, bboxes, self.cam_stack, self.mesh)[0]
-        out = _pipeline_fn(self.estimator, self.conf_threshold, self.triangulation, frames,
-                           bboxes, self.cam_stack)
-        if self.mesh is not None:
-            out = {k: gather_rows(v, self.mesh) for k, v in out.items()}
-        return out
+        """frames (T, C, H, W, 3) uint8 or float, bboxes (T, C, 4) or None.
+        Spans (`utils.profiling.span`): ``mc3d.pipeline.run`` around the
+        call, ``mc3d.pipeline.detect`` around the detector inside it."""
+        with span("mc3d.pipeline.run"):
+            frames = self._rows(frames)
+            use_detector = bboxes is None and self.has_detector
+            bboxes = self._full_frame(frames) if bboxes is None else self._rows(bboxes).float()
+            frames = _pixels(frames)
+            if use_detector:
+                with span("mc3d.pipeline.detect"):
+                    bboxes = _detect_boxes(self.detector, frames, bboxes, self.cam_stack,
+                                           self.mesh)[0]
+            out = _pipeline_fn(self.estimator, self.conf_threshold, self.triangulation, frames,
+                               bboxes, self.cam_stack)
+            if self.mesh is not None:
+                out = {k: gather_rows(v, self.mesh) for k, v in out.items()}
+            return out
 
     @torch.inference_mode()
     def detect(self, frames) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -159,18 +165,19 @@ def _pipeline_fn(est, conf_thr: float, triangulation: str, frames: torch.Tensor,
                  bboxes: torch.Tensor, cam: dict) -> dict:
     T, C, H, W, _ = frames.shape
     out = _predict(est, frames.reshape(T * C, H, W, 3), bboxes.reshape(T * C, 4))
-    kpts = out["keypoints"].reshape(T, C, -1, 3)
-    gauss = out["gaussians"].reshape(T, C, -1, 6)
+    with span("mc3d.pipeline.triangulate", device=frames.is_cuda):
+        kpts = out["keypoints"].reshape(T, C, -1, 3)
+        gauss = out["gaussians"].reshape(T, C, -1, 6)
 
-    conf = kpts[..., 2]  # (T, C, K)
-    # Low-confidence joints -> NaN, the pipeline's missing-data mechanism.
-    xy = torch.where(conf[..., None] > conf_thr, kpts[..., :2],
-                     torch.full_like(kpts[..., :2], float("nan")))
-    xy_jc = xy.transpose(1, 2)  # (T, K, C, 2)
-    conf_jc = conf.transpose(1, 2)  # (T, K, C)
-    tri = triangulate_nview if triangulation == "nview" else triangulate_top2
-    kpts_3d = tri(xy_jc, conf_jc, cam["K"], cam["dist"], cam["R"], cam["T"])
-    kpts_2d = torch.cat([xy_jc, conf_jc[..., None]], dim=-1).transpose(-1, -2)  # (T, K, 3, C)
+        conf = kpts[..., 2]  # (T, C, K)
+        # Low-confidence joints -> NaN, the pipeline's missing-data mechanism.
+        xy = torch.where(conf[..., None] > conf_thr, kpts[..., :2],
+                         torch.full_like(kpts[..., :2], float("nan")))
+        xy_jc = xy.transpose(1, 2)  # (T, K, C, 2)
+        conf_jc = conf.transpose(1, 2)  # (T, K, C)
+        tri = triangulate_nview if triangulation == "nview" else triangulate_top2
+        kpts_3d = tri(xy_jc, conf_jc, cam["K"], cam["dist"], cam["R"], cam["T"])
+        kpts_2d = torch.cat([xy_jc, conf_jc[..., None]], dim=-1).transpose(-1, -2)  # (T, K, 3, C)
     return {"kpts_2d": kpts_2d, "heatmaps_2d": gauss, "kpts_3d": kpts_3d}
 
 

@@ -14,21 +14,32 @@ cumulative wall-time percentages inside the SGD loop
   ``log_dir`` (the TensorBoard package is not needed);
 - `profile_refinement_costs`: each refinement cost timed alone on one
   window of a `refine.PoseRefiner`, the reference's per-cost breakdown for
-  tuning the λ weights (the production loop stays as it is).
+  tuning the λ weights (the production loop stays as it is);
+- `span` / `spans` / `clear_spans`: the program's own spans at its layer
+  boundaries (the staging ring, the estimate loop's dispatch and drain,
+  the block pipeline's stages), recorded in memory only while a torch
+  profiler runs in the process (`trace`, ``profile_block``, the
+  benchmark's traced stretches, or an operator's own
+  ``torch.profiler.profile``); with none running a span costs one flag
+  read.  There is no other switch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import socket
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["StepTimer", "trace", "profile_refinement_costs"]
+__all__ = ["StepTimer", "trace", "profile_refinement_costs", "Span", "span", "spans",
+           "clear_spans", "tracing"]
 
 
 def _sync_cuda() -> None:
@@ -95,6 +106,175 @@ def trace(log_dir: str):
                                      f"{int(time.time() * 1e3)}.pt.trace.json")
         prof.export_chrome_trace(path)
         prof.trace_path = path
+
+
+# Spans.  `torch.autograd.profiler._is_profiler_enabled` is one
+# process-wide flag, True on every thread while any torch profiler runs
+# (whatever its activities); read through the module at every call.
+_autograd_profiler = torch.autograd.profiler
+# Spans kept: the newest, a few blocks' worth of seconds of tracing.
+SPAN_CAPACITY = 4096
+# A span's host event in the profiler's trace (kineto records it only on
+# the thread that started the profiler, and there it lands in the Chrome
+# trace beside the device events).  The C++ context manager enters in ~1 us
+# holding the GIL; ``torch.profiler.record_function`` enters through an
+# operator call that releases the GIL, and on an H100 host, with the
+# staging thread waiting for the GIL, its event then started up to 0.19 ms
+# after a clock read taken just before it.
+_annotation = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.record_function)
+
+
+class Span(NamedTuple):
+    """One finished span.  ``parent`` is the ``id`` of the span that
+    enclosed it on the same thread (None at the top); ``block`` is the
+    block id given to it or inherited from that parent.  ``start_ns`` and
+    ``end_ns`` are host times on ``time.time_ns()``'s clock, the clock of
+    the profiler's own host events.  ``device_ms`` is the time on the
+    stream between the span's two timing events (None without events, or
+    while its work has not run)."""
+
+    id: int
+    name: str
+    block: int | None
+    parent: int | None
+    thread: int
+    start_ns: int
+    end_ns: int
+    device_ms: float | None
+
+
+class _NoSpan:
+    """The span while no profiler runs: one shared object that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "block", "device", "id", "parent", "thread", "start", "events",
+                 "annotation")
+
+    def __init__(self, rec, name, block, device):
+        self.rec, self.name, self.block, self.device = rec, name, block, device
+
+    def __enter__(self):
+        stack = self.rec.stack()
+        outer = stack[-1] if stack else None
+        if self.block is None and outer is not None:
+            self.block = outer.block
+        self.parent = outer.id if outer is not None else None
+        self.id = next(self.rec.ids)
+        self.thread = threading.get_ident()
+        stack.append(self)
+        if self.device is True:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        else:
+            self.events = self.device or None  # the caller's pair, or none
+        self.annotation = _annotation(self.name)
+        self.annotation.__enter__()
+        # Kineto's start_ns() of the annotation read 0.1-0.2 us before this
+        # time_ns() on the CPU: time.time_ns() is the clock of the
+        # profiler's host events.
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.annotation.__exit__(*exc)
+        end = time.time_ns()
+        if self.device is True:
+            self.events[1].record()
+        self.rec.stack().pop()
+        self.rec.add((self.id, self.name, self.block, self.parent, self.thread, self.start, end,
+                      self.events))
+        return False
+
+
+class _SpanRecorder:
+    """The bounded ring of finished spans and each thread's open spans."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self.ids = itertools.count()
+        self._done: deque = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def add(self, record: tuple) -> None:
+        with self._lock:
+            self._done.append(record)
+
+    def snapshot(self) -> list:
+        with self._lock:
+            records = list(self._done)
+        return [Span(*r[:7], _elapsed_ms(r[7])) for r in sorted(records, key=lambda r: r[5])]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._done.clear()
+
+
+def _elapsed_ms(events) -> float | None:
+    if events is None:
+        return None
+    start, end = events
+    if not end.query():
+        return None
+    return start.elapsed_time(end)
+
+
+_RECORDER = _SpanRecorder()
+
+
+def tracing() -> bool:
+    """Whether a torch profiler runs in this process (spans record)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str, block: int | None = None, device=False):
+    """A context manager marking one stage of the program.
+
+    While no torch profiler runs it is one shared object that does
+    nothing, returned after a single flag read: no lock, no allocation, no
+    CUDA call.  While one runs, the span is kept in memory (`spans`) with
+    its block id (``block``, else its enclosing span's on this thread),
+    parent, thread and host start and end, and is entered as a profiler
+    event of the same name (``record_function``'s, in its fast form).
+    ``device=True`` also records a pair of timing CUDA events on the
+    current stream around the span's work (pass it only where that work is
+    on the card); ``device=(start, end)`` keeps the caller's own pair of
+    timing events, which the caller records on a stream of its choice
+    inside the span.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _OpenSpan(_RECORDER, name, block, device)
+
+
+def spans() -> list:
+    """The finished spans still in the ring (the newest `SPAN_CAPACITY`), by
+    host start; each span's device time is read from its events now, so
+    synchronize first."""
+    return _RECORDER.snapshot()
+
+
+def clear_spans() -> None:
+    """Empty the ring of finished spans."""
+    _RECORDER.clear()
 
 
 def profile_refinement_costs(refiner, window: int | None = None, n_iters: int = 20):
