@@ -11,23 +11,31 @@ Phases (each synchronises the card; any failure exits non-zero):
 3. the full-width main path: HRNet-W32 at 192x256 input, 2 cameras, blocks
    of T=256 frames of 256x256 (512 crops), random weights from a seed.  One
    warm-up block, then the launch counts are set to 0, a few blocks run and
-   the counts are read; frames/s and the output checks are printed;
+   the counts are read (1 crop, 4 Bottleneck and 1 decode launch per block,
+   no other kernel); frames/s and the output checks are printed;
 4. each kernel against its plain PyTorch version on the card, on the inputs
    the main path gave it (the stem output of a block's crops for the
    Bottleneck chain, the block's heatmaps for the decode), with kernel,
    plain and library times (CUDA events) and the bound from this run's
    shapes; the chain also beside the bytes bound of four launches, and
    block 0 and an identity block each alone beside its own bound, with
-   every timed kernel's share of its bound;
+   every timed kernel's share of its bound; the crop kernel on the
+   benchmark cells' blocks, 512 and 256 bf16 640x480 frames with
+   full-frame boxes: every 32nd crop and the last against the plain form
+   computed in f32 and rounded once, and the block timed alone beside its
+   bytes bound and the plain bf16 path;
 5. the whole pipeline on the card against the plain CPU path (the one the
-   CPU tests hold against the JAX package) at a small HRNet size;
+   CPU tests hold against the JAX package) at a small HRNet size; here and
+   in phases 8, 11, 13 and 18 the CPU side crops with the plain form
+   computed in f32 and rounded once (`f32_plain_crop`), the reference the
+   crop kernel is held to in phase 4;
 6. the Swin-B main path at full width: input 192x256, 2 cameras, blocks of
    T=128 frames of 256x256 (256 crops), every SwinBlock through the
    swin_gemm and window-attention kernels, random weights from a seed.  One
    warm-up block, then the counts are set to 0, a few blocks run and the
-   counts are read (96 swin_gemm product launches, 48 of them after a
-   LayerNorm row-kernel launch, 24 window-attention and 1 decode launch
-   per block); frames/s and the output checks are printed;
+   counts are read (1 crop launch, 96 swin_gemm product launches, 48 of
+   them after a LayerNorm row-kernel launch, 24 window-attention and 1
+   decode launch per block); frames/s and the output checks are printed;
 7. one SwinBlock of each stage against its plain version, on the inputs
    the main path gave it (captured by a forward pre-hook); each of its four
    token products (qkv, proj, fc1, fc2) on that block's own operands
@@ -44,9 +52,9 @@ Phases (each synchronises the card; any failure exits non-zero):
    fixed order (tokens in shift-0 window order for the whole stage, each
    shifted block's attention reading its windows through a row table).  A
    warm-up block, then the counts are set to 0, a few blocks run and the
-   counts are read (96 swin_gemm and 48 LayerNorm row-kernel launches, 24
-   row-mode attention, 0 chained-layout attention and 1 decode launch per
-   block); spies show that every stage
+   counts are read (1 crop, 96 swin_gemm and 48 LayerNorm row-kernel
+   launches, 24 row-mode attention, 0 chained-layout attention and 1 decode
+   launch per block); spies show that every stage
    ran `fused_swin_stage_fixed` and the chained `fused_swin_block` never;
 10. the first shifted fixed-order block of each stage (captured on the main
    path) against its plain version and against the chained
@@ -62,9 +70,9 @@ Phases (each synchronises the card; any failure exits non-zero):
 12. the n-view + flip-TTA path at full width: HRNet-W32 at 192x256 input, 4
    cameras, blocks of T=128 frames of 256x256 (512 crops, each through the
    model twice), robust n-view triangulation.  A warm-up block, then the
-   counts are set to 0, a few blocks run and the counts are read (8
-   Bottleneck launches, two stage-1 passes, and 1 decode launch per
-   block); frames/s and the output checks are printed;
+   counts are set to 0, a few blocks run and the counts are read (1 crop
+   launch, 8 Bottleneck launches, two stage-1 passes, and 1 decode launch
+   per block); frames/s and the output checks are printed;
 13. small pipelines on the card against the plain CPU path: n-view with
    flip-TTA on the fused decode (4 cameras), end to end and on the card's
    own heatmaps replayed into the CPU path, and flip-TTA with the DARK
@@ -77,8 +85,8 @@ Phases (each synchronises the card; any failure exits non-zero):
 15. the detector path at full width: HRNet-W32 at 192x256 behind RTMDet-m
    (``rtmdet_m``, top-1 selection) on the headline block (T=256 x C=2 of
    256x256, 512 crops), random weights from a seed.  A warm-up block, then
-   the counts are set to 0, a few blocks run and the counts are read (4
-   Bottleneck and 1 decode launch per block); frames/s, the full-frame
+   the counts are set to 0, a few blocks run and the counts are read (1
+   crop, 4 Bottleneck and 1 decode launch per block); frames/s, the full-frame
    frames/s of the same pipeline (boxes given) and the detector's cost
    ``1 - det/full``, the share of frames whose box was kept (each kept box
    finite, inside the frame, of positive size) and the output checks;
@@ -86,7 +94,8 @@ Phases (each synchronises the card; any failure exits non-zero):
    (consistent selection: top-4 candidates, a 9-frame window): launch
    counts, frames/s, kept boxes and the output checks;
 17. the SimCC path at full width: RTMPose-t (``coco_rtmpose-t``) at 192x256
-   on T=256 x C=2, a few timed blocks: 0 Bottleneck and 0 decode launches,
+   on T=256 x C=2, a few timed blocks: 1 crop launch per block and no
+   other kernel,
    frames/s, the share of joints passing the 0.3 gate, the output checks;
 18. small pipelines on the card against the plain CPU path: the detector
    path with top-1 and with consistent selection, the CPU path also on the
@@ -189,7 +198,7 @@ Phases (each synchronises the card; any failure exits non-zero):
    against the mirror's forward on one seeded 640x640 batch (TF32 off);
    (f) ``python -m multi_camera_3d_pose_estimation_tpu_torch doctor
    --require_device`` as a subprocess: its report printed, the device row
-   ``cuda × 1`` with the card's name, the four kernel libraries, the gloo
+   ``cuda × 1`` with the card's name, every kernel library, the gloo
    row ok, and the exit code 0 exactly when every required row is ok (the
    card's machine has no libav, so the media runtime row is printed as it
    is);
@@ -212,12 +221,15 @@ Phases (each synchronises the card; any failure exits non-zero):
    the flagship recipe's 5000 f32 steps: batch 8, warmup+cosine; the
    CenterNet detector 100), its weights saved and built back in bf16, and
    deployed behind the detector on the harness's validation clip (16
-   frames x 2 cameras of 256x256) three ways: (a) the JAX recipe's deploy
-   (f32, flip-TTA, DARK, kernels off), (b) bf16, flip-TTA, the default
-   decode, kernels off, (c) as (b) with the stage-1 and decode kernels
-   (counts set to 0 just before each deploy and read just after: 8
-   Bottleneck and 1 decode launch per forward in (c), none in (a) and
-   (b)); MPJPE raw, median and refined and the 2D error of each, the same
+   frames x 2 cameras of 256x256) four ways: (a) the JAX recipe's deploy
+   (f32, flip-TTA, DARK, the stage-1 and decode kernels off), (b) bf16,
+   flip-TTA, the default decode, those kernels off, (c) as (b) with the
+   stage-1 and decode kernels, (p) as (c) with every kernel wrapper (the
+   crop's included) computing its plain version (counts set to 0 just
+   before each deploy and read just after, per flip-TTA pair: 1 crop
+   launch in (a), (b) and (c), as on every card path, 8 Bottleneck and 1
+   decode launch in (c), none in (p)); MPJPE raw, median and refined and
+   the 2D error of each, the same
    three at random init; (c)'s mean errors within 5% of (b)'s (joint by
    joint printed), each stage-1 block and the decode against their plain
    versions on the trained weights' inputs from the clip (phase 4's
@@ -410,8 +422,9 @@ def compare_small(a: dict, b: dict, what: str) -> None:
 def check_small_pipeline(gen, family: str, label: str = "", cams: int = 2, small: str = "",
                          **build_kw) -> None:
     """The whole pipeline on the card against the plain CPU path (the one the
-    CPU tests hold against the JAX package), at a small size (``SMALL[small
-    or family]``); ``build_kw`` are `build_pipeline` options (triangulation,
+    CPU tests hold against the JAX package, its crop the plain form in f32
+    rounded once: `f32_plain_crop`), at a small size (``SMALL[small or
+    family]``); ``build_kw`` are `build_pipeline` options (triangulation,
     flip-TTA, decode)."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
@@ -423,7 +436,8 @@ def check_small_pipeline(gen, family: str, label: str = "", cams: int = 2, small
     for device in ("cuda", "cpu"):
         p = build_pipeline(cfg, input_size, shape, device=device, seed=3, family=family,
                            **build_kw)
-        res[device] = {k: v.float().cpu() for k, v in p.run(small).items()}
+        with f32_plain_crop() if device == "cpu" else contextlib.nullcontext():
+            res[device] = {k: v.float().cpu() for k, v in p.run(small).items()}
     compare_small(res["cuda"], res["cpu"], f"small {label}{family} pipeline")
 
 
@@ -451,12 +465,13 @@ NVIEW_T, NVIEW_C = 128, 4  # the n-view + flip-TTA path: 512 crops, two passes e
 def run_nview_flip_main_path(dev, gen) -> dict:
     """HRNet-W32 at full width through `build_pipeline(triangulation="nview",
     flip_test=True)` on 4 cameras: a warm-up block, then N_BLOCKS counted and
-    timed blocks (two stage-1 passes per block: 8 Bottleneck launches, and
-    1 decode launch on the averaged maps)."""
+    timed blocks (one crop launch and two stage-1 passes per block: 8
+    Bottleneck launches, and 1 decode launch on the averaged maps)."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
     from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
     from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
 
     shape = (NVIEW_T, NVIEW_C, H, W, 3)
@@ -466,7 +481,8 @@ def run_nview_flip_main_path(dev, gen) -> dict:
                  for _ in range(2)]
     out = pipe.run(blocks_u8[0])  # warm-up
     torch.cuda.synchronize()
-    counters = {"bottleneck": bn.fused_bottleneck_block, "heatmap_decode": fd.heatmap_decode_raw}
+    counters = {"bottleneck": bn.fused_bottleneck_block, "heatmap_decode": fd.heatmap_decode_raw,
+                "crop_resample": cr.crop_resample}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -480,8 +496,9 @@ def run_nview_flip_main_path(dev, gen) -> dict:
         f"{fps:.1f} multi-camera frames/s; launches {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the n-view + flip-TTA path")
-    check(launches == {"bottleneck": 8 * N_BLOCKS, "heatmap_decode": N_BLOCKS},
-          "8 Bottleneck launches (two passes) and 1 decode launch per block")
+    check(launches == {"bottleneck": 8 * N_BLOCKS, "heatmap_decode": N_BLOCKS,
+                       "crop_resample": N_BLOCKS},
+          "1 crop, 8 Bottleneck (two passes) and 1 decode launch per block")
     check_outputs(out, pipe, NVIEW_T, NVIEW_C)
     return {"fps": fps, "launches": launches}
 
@@ -632,6 +649,7 @@ def run_swin_main_path(dev, gen, cfg, label: str, suffix: str = "") -> dict:
     names) for the checks that follow."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
     from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
     from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
@@ -646,7 +664,7 @@ def run_swin_main_path(dev, gen, cfg, label: str, suffix: str = "") -> dict:
     out = pipe.run(blocks_u8[0])  # warm-up
     torch.cuda.synchronize()
     counters = {"swin_gemm": sb.swin_gemm, "window_attention": wa.window_attention,
-                "heatmap_decode": fd.heatmap_decode_raw}
+                "heatmap_decode": fd.heatmap_decode_raw, "crop_resample": cr.crop_resample}
     for fn in counters.values():
         fn.launches = 0
     sb.swin_gemm.ln_launches = 0
@@ -670,8 +688,8 @@ def run_swin_main_path(dev, gen, cfg, label: str, suffix: str = "") -> dict:
     check(launches == {"swin_gemm": 4 * n_blocks * N_SWIN_BLOCKS,
                        "swin_gemm_ln": 2 * n_blocks * N_SWIN_BLOCKS,
                        "window_attention": n_blocks * N_SWIN_BLOCKS,
-                       "heatmap_decode": N_SWIN_BLOCKS},
-          f"{label}: {4 * n_blocks} swin_gemm product launches ({2 * n_blocks} after a "
+                       "heatmap_decode": N_SWIN_BLOCKS, "crop_resample": N_SWIN_BLOCKS},
+          f"{label}: 1 crop, {4 * n_blocks} swin_gemm product launches ({2 * n_blocks} after a "
           f"LayerNorm row-kernel launch), {n_blocks} window-attention and 1 decode launch "
           "per block")
     check_outputs(out, pipe, SWIN_T)
@@ -687,6 +705,7 @@ def run_fixed_main_path(swin: dict) -> dict:
     on the stage and chained-block entry points the model calls, and the
     peak memory of the timed blocks."""
     import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
     from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
     from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
@@ -695,7 +714,8 @@ def run_fixed_main_path(swin: dict) -> dict:
     out = pipe.run(blocks_u8[0])  # warm-up
     torch.cuda.synchronize()
     counters = {"swin_gemm": sb.swin_gemm, "window_attention_rows": wa.window_attention_rows,
-                "window_attention": wa.window_attention, "heatmap_decode": fd.heatmap_decode_raw}
+                "window_attention": wa.window_attention, "heatmap_decode": fd.heatmap_decode_raw,
+                "crop_resample": cr.crop_resample}
     calls = {"fused_swin_stage_fixed": [], "fused_swin_block": []}
     originals = {name: getattr(sb, name) for name in calls}
 
@@ -733,8 +753,9 @@ def run_fixed_main_path(swin: dict) -> dict:
     check(launches == {"swin_gemm": 4 * n_blocks * N_SWIN_BLOCKS,
                        "swin_gemm_ln": 2 * n_blocks * N_SWIN_BLOCKS,
                        "window_attention_rows": n_blocks * N_SWIN_BLOCKS,
-                       "window_attention": 0, "heatmap_decode": N_SWIN_BLOCKS},
-          f"{label}: {4 * n_blocks} swin_gemm product and {2 * n_blocks} LayerNorm row-kernel "
+                       "window_attention": 0, "heatmap_decode": N_SWIN_BLOCKS,
+                       "crop_resample": N_SWIN_BLOCKS},
+          f"{label}: 1 crop, {4 * n_blocks} swin_gemm product and {2 * n_blocks} LayerNorm row-kernel "
           f"launches, {n_blocks} row-mode attention, 0 chained attention and 1 decode launch "
           "per block on the fixed-order path")
     widths = [cfg["embed"] * 2 ** i for i in range(len(cfg["depths"]))]
@@ -1276,16 +1297,41 @@ def fixed_layout():
             os.environ["MC3D_SWIN_FIXED"] = before
 
 
+@contextlib.contextmanager
+def f32_plain_crop():
+    """Inside the block the crop wrapper computes the plain form in f32 and
+    rounds it once to the frames' dtype, on the CPU and in place of the
+    card's kernel (no launch, no count): the reference phase 4 and the
+    card tests hold the kernel to.  A CPU pipeline's bf16 plain form rounds
+    its products at three points, the kernel once."""
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
+
+    saved = cr.crop_and_normalize, cr._launch
+    plain = saved[0]
+
+    def f32_once(frames, bboxes, input_size, bbox_padding=1.25):
+        crops, scale, offset = plain(frames.float(), bboxes, input_size, bbox_padding)
+        return crops.to(frames.dtype), scale, offset
+
+    cr.crop_and_normalize = cr._launch = f32_once
+    try:
+        yield
+    finally:
+        cr.crop_and_normalize, cr._launch = saved
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by counter name."""
     from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
     from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
     from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
 
     return {"bottleneck": bn.fused_bottleneck_block, "heatmap_decode": fd.heatmap_decode_raw,
             "swin_gemm": sb.swin_gemm, "window_attention": wa.window_attention,
-            "window_attention_rows": wa.window_attention_rows}
+            "window_attention_rows": wa.window_attention_rows,
+            "crop_resample": cr.crop_resample}
 
 
 # The counters whose launches make up each row of the results line.
@@ -1293,7 +1339,8 @@ ROW_COUNTERS = {"stage1_bottleneck_chain": ("bottleneck",), "heatmap_decode": ("
                 "swin_block": ("swin_gemm", "window_attention"),
                 "window_attention": ("window_attention",),
                 "swin_block_fixed": ("swin_gemm", "window_attention_rows"),
-                "swin_stage_fixed": ("swin_gemm", "window_attention_rows")}
+                "swin_stage_fixed": ("swin_gemm", "window_attention_rows"),
+                "crop_resample": ("crop_resample",)}
 
 
 def timed_blocks(pipe, blocks, n: int, bboxes=None):
@@ -1362,8 +1409,9 @@ def run_detector_path(dev, gen, det_name: str, select: str, n_blocks: int,
     log(f"{what}: {n_blocks} blocks of {shape} in {dt:.3f} s -> {fps:.1f} multi-camera "
         f"frames/s; launches {launches}")
     check(launches == dict(bottleneck=4 * n_blocks, heatmap_decode=n_blocks, swin_gemm=0,
-                           window_attention=0, window_attention_rows=0),
-          f"{what}: 4 Bottleneck launches and 1 decode launch per block, no other kernel")
+                           window_attention=0, window_attention_rows=0,
+                           crop_resample=n_blocks),
+          f"{what}: 1 crop, 4 Bottleneck and 1 decode launch per block, no other kernel")
     check_outputs(out, pipe, T)
     res = {"fps": fps, "launches": launches,
            "kept_share": check_kept_boxes(pipe, blocks[(n_blocks - 1) % 2], what)}
@@ -1379,7 +1427,8 @@ def run_detector_path(dev, gen, det_name: str, select: str, n_blocks: int,
 
 def run_simcc_path(dev, gen) -> dict:
     """RTMPose-t through `build_pipeline(family="rtmpose")` on T=256 x C=2:
-    a warm-up block, then N_BLOCKS counted and timed blocks (no kernel)."""
+    a warm-up block, then N_BLOCKS counted and timed blocks (1 crop launch
+    per block, no other kernel)."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
     from multi_camera_3d_pose_estimation_tpu_torch.models.registry import MODEL_REGISTRY
@@ -1401,8 +1450,9 @@ def run_simcc_path(dev, gen) -> dict:
     log(f"SimCC path (RTMPose-t): {N_BLOCKS} blocks of {shape} in {dt:.3f} s -> {fps:.1f} "
         f"multi-camera frames/s; launches {launches}; {share:.4f} of joints pass the "
         f"{pipe.conf_threshold} gate")
-    check(all(n == 0 for n in launches.values()),
-          "the SimCC path launches no kernel (0 Bottleneck, 0 decode)")
+    check(launches == dict(bottleneck=0, heatmap_decode=0, swin_gemm=0, window_attention=0,
+                           window_attention_rows=0, crop_resample=N_BLOCKS),
+          "the SimCC path launches 1 crop kernel per block and no other kernel")
     check_outputs(out, pipe, T)
     return {"fps": fps, "launches": launches, "joint_share": share}
 
@@ -1414,7 +1464,8 @@ def check_small_detector_pipeline(gen, dev, select: str) -> None:
     """The small HRNet pipeline behind ``test_rtmdet_micro`` on the card
     against the CPU path: (1) the CPU path on the card's own (bf16)
     detector outputs replayed: the same boxes and scores, and the outputs
-    as phase 5 holds them; (2) end to end with the detector in float32 on
+    as phase 5 holds them (the CPU crop the plain form in f32); (2)
+    end to end with the detector in float32 on
     both sides (TF32 off: the same candidate then gives the same box within
     1e-2 px), compared on the frames where both sides kept the same box."""
     import torch
@@ -1440,7 +1491,8 @@ def check_small_detector_pipeline(gen, dev, select: str) -> None:
     replay = iter([{k: v.cpu() for k, v in o.items() if k != "raw"} for o in recorded])
     cpu.detector.model = lambda x: next(replay)
     b_det = list(cpu.detect(small))
-    b = {k: v.float().cpu() for k, v in cpu.run(small).items()}
+    with f32_plain_crop():
+        b = {k: v.float().cpu() for k, v in cpu.run(small).items()}
     same = all(torch.equal(x, y) for x, y in zip(a_det, b_det))
     log(f"small {select} detector pipeline, the CPU path on the card's detector outputs: boxes, "
         f"scores and kept flags equal {same} ({a_det[2].float().mean().item():.3f} kept)")
@@ -1457,7 +1509,9 @@ def check_small_detector_pipeline(gen, dev, select: str) -> None:
         det = SinglePersonDetector(init_rtmdet_(det_model, torch.Generator().manual_seed(3)),
                                    select=select, device=d)
         p = build_pipeline(cfg, input_size, DET_SMALL_SHAPE, device=d, seed=3, detector=det)
-        res[d] = ({k: v.float().cpu() for k, v in p.run(small).items()}, p.detect(small)[0].cpu())
+        with f32_plain_crop() if d == "cpu" else contextlib.nullcontext():
+            res[d] = ({k: v.float().cpu() for k, v in p.run(small).items()},
+                      p.detect(small)[0].cpu())
     torch.backends.cudnn.allow_tf32 = prev
     (a, ba), (b, bb) = res[dev], res["cpu"]
     frames_ok = ((ba - bb).abs() < 1e-2).all(-1).all(-1)  # (T,): both views kept the same box
@@ -1696,8 +1750,9 @@ def run_artifact_chain(dev, phase3_fps: float) -> dict:
                 f"({steady['streamed'] / steady['in memory']:.4f}); fill streamed "
                 f"{fill['streamed']:.3f} ms, in memory {fill['in memory']:.3f} ms")
             check(launches == dict(bottleneck=4 * n_blocks, heatmap_decode=n_blocks, swin_gemm=0,
-                                   window_attention=0, window_attention_rows=0),
-                  f"blocks of {bs}: 4 Bottleneck and 1 decode launch per streamed block")
+                                   window_attention=0, window_attention_rows=0,
+                                   crop_resample=n_blocks),
+                  f"blocks of {bs}: 1 crop, 4 Bottleneck and 1 decode launch per streamed block")
             check(all(a.shape[0] == STREAM_FRAMES for a in streamed[bs]), "every frame returned")
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             window = 4 * bs if bs < T else 2 * bs
@@ -1994,12 +2049,70 @@ def check_decode(est, heat, label: str = ""):
     return flat, kd, dec_err
 
 
+# The benchmark cells' crops per block (2 cameras of 640x480 x 256 or 128
+# frames), full-frame boxes, 256x192 crops.
+CROP_BLOCKS = {"w32_vga_c2_b256": 512, "swinb_vga_c2_b128": 256}
+CROP_STRIDE = 32  # every 32nd crop and the last held against the f32 plain form
+
+
+def check_crop_kernel(dev, launches: dict) -> list:
+    """The crop kernel (`ops.crop_resample`) on each benchmark cell's block
+    of bf16 VGA frames: every CROP_STRIDE-th crop and the last against the
+    plain form computed in f32 and rounded once (one bf16 step of the
+    largest output, under 1% of outputs more than one step of their own
+    binade off), scale and offset bit for bit the CPU's, and the whole
+    block timed alone (CUDA events) beside its bytes bound and the plain
+    bf16 path (`crop_and_normalize`, the crop before the kernel).  Rows for
+    the results line, with ``launches`` (the main path's counts)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
+
+    rows = []
+    for cell, B in CROP_BLOCKS.items():
+        gen = torch.Generator(device=dev).manual_seed(B)
+        frames = torch.rand((B, 480, 640, 3), generator=gen, device=dev).to(torch.bfloat16)
+        boxes = torch.tensor([[0.0, 0.0, 640.0, 480.0]], device=dev).expand(B, 4).contiguous()
+        idx = torch.tensor(sorted({*range(0, B, CROP_STRIDE), B - 1}), device=dev)
+        with torch.inference_mode():
+            crops, scale, offset = cr.crop_resample(frames, boxes, INPUT)
+            ref = torch.cat([cr.crop_and_normalize(frames[i:i + 1].float(), boxes[i:i + 1],
+                                                   INPUT)[0] for i in idx.tolist()])
+            cpu = cr.crop_and_normalize(frames[idx].cpu().float(), boxes[idx].cpu(), INPUT)
+            torch.cuda.synchronize()
+            err = (crops[idx].float() - ref.to(torch.bfloat16).float()).abs().max().item()
+            flips = bf16_steps_apart(crops[idx], ref)
+            same_geometry = (torch.equal(scale[idx].cpu(), cpu[1])
+                             and torch.equal(offset[idx].cpu(), cpu[2]))
+            ms = cuda_ms(lambda: cr.crop_resample(frames, boxes, INPUT), 20)
+            plain_ms = cuda_ms(lambda: cr.crop_and_normalize(frames, boxes, INPUT), 3)
+        in_w, in_h = INPUT
+        nbytes = B * ((480 * 640 + in_h * in_w) * 3 * frames.element_size() + 32)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        log(f"crop kernel, {cell}: {B} bf16 640x480 frames -> {in_h}x{in_w}, {len(idx)} crops "
+            f"(every {CROP_STRIDE}th and the last) checked: max |kernel - plain f32| {err:.3g} "
+            f"(largest output {ref.abs().max().item():.3g}), share more than one bf16 step "
+            f"{flips:.2g}; scale and offset the CPU's: {same_geometry}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} "
+            f"MB): {bound_ms / ms:.1%} of the bound")
+        check(err <= 2.0 ** -8 * ref.abs().max().item() and flips < 0.01 and same_geometry,
+              f"the crop kernel agrees with the plain form on {cell}'s block")
+        rows.append({"name": "crop_resample", "config": cell, "route": "cuda",
+                     "source": f"{PORT}/csrc/crop_resample.cu", "replaces": None,
+                     "launches": launches["crop_resample"], "crops": B,
+                     "crops_checked": len(idx), "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                     "library_ms": None, "share_of_bound": bound_ms / ms})
+        del frames, crops, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_hrnet_main_path(dev, cfg, input_size, blocks_u8, label: str) -> dict:
     """HRNet at full width through `build_pipeline` on ``blocks_u8`` (T, C,
     H, W, 3) uint8 on the card, crops of ``input_size`` (w, h): a warm-up
     block, then N_BLOCKS blocks with every count set to 0 just before and
-    read just after (4 Bottleneck and 1 decode launch per block, no other
-    kernel), frames/s, the output checks and the peak memory of the timed
+    read just after (1 crop, 4 Bottleneck and 1 decode launch per block, no
+    other kernel), frames/s, the output checks and the peak memory of the timed
     blocks (``held_bytes`` allocated before them)."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
@@ -2019,11 +2132,12 @@ def run_hrnet_main_path(dev, cfg, input_size, blocks_u8, label: str) -> dict:
     log(f"{label} main path: {N_BLOCKS} blocks of {shape}, crops {input_size[0]}x"
         f"{input_size[1]}, in {dt:.3f} s -> {fps:.1f} multi-camera frames/s; launches "
         f"{launches}; peak memory {peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} held before)")
-    for name in ("bottleneck", "heatmap_decode"):
+    for name in ("bottleneck", "heatmap_decode", "crop_resample"):
         check(launches[name] > 0, f"kernel {name} was not launched on the {label} main path")
     check(launches == dict(bottleneck=4 * N_BLOCKS, heatmap_decode=N_BLOCKS, swin_gemm=0,
-                           window_attention=0, window_attention_rows=0),
-          f"{label}: 4 Bottleneck launches and 1 decode launch per block, no other kernel")
+                           window_attention=0, window_attention_rows=0,
+                           crop_resample=N_BLOCKS),
+          f"{label}: 1 crop, 4 Bottleneck and 1 decode launch per block, no other kernel")
     check_outputs(out, pipe, shape[0], shape[1])
     return {"pipe": pipe, "fps": fps, "launches": launches, "peak_bytes": peak,
             "held_bytes": held}
@@ -2431,8 +2545,8 @@ def run_pth_phase(dev, blocks_u8, phase3_fps: float) -> dict:
             f"{res['launches']['hrnet_pth']}")
         check(res["launches"]["hrnet_pth"] == dict(bottleneck=4 * n, heatmap_decode=n,
                                                    swin_gemm=0, window_attention=0,
-                                                   window_attention_rows=0),
-              "HRNet from the .pth: 4 Bottleneck and 1 decode launch per block")
+                                                   window_attention_rows=0, crop_resample=n),
+              "HRNet from the .pth: 1 crop, 4 Bottleneck and 1 decode launch per block")
         check(same(outs["pth"], outs["npz"]),
               "HRNet from the .pth: the artifacts equal the .npz route's bit for bit")
         check_outputs({k: torch.from_numpy(v) for k, v in zip(("kpts_2d", "heatmaps_2d",
@@ -2478,8 +2592,9 @@ def run_pth_phase(dev, blocks_u8, phase3_fps: float) -> dict:
         check(res["launches"]["swin_pth"] == dict(bottleneck=0, heatmap_decode=1,
                                                   swin_gemm=4 * n_blocks,
                                                   window_attention=n_blocks,
-                                                  window_attention_rows=0),
-              "Swin-B from the .pth: 96 swin_gemm, 24 attention and 1 decode launch per block")
+                                                  window_attention_rows=0, crop_resample=1),
+              "Swin-B from the .pth: 1 crop, 96 swin_gemm, 24 attention and 1 decode launch "
+              "per block")
         check(same(souts["pth"].values(), souts["npz"].values()),
               "Swin-B from the .pth: the outputs equal the .npz route's bit for bit")
         # Each stage's first shifted block: its window attention on the checkpoint's bias table.
@@ -2749,8 +2864,9 @@ def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float, swin: dict) -> dict:
             f"launches {launches}; equal to mesh=None bit for bit: {equal}")
         n_swin = sum(spipe.estimator.model.cfg["depths"])
         check(launches == dict(bottleneck=0, heatmap_decode=1, swin_gemm=4 * n_swin,
-                               window_attention=n_swin, window_attention_rows=0),
-              "the Swin-B mesh pipeline: 96 swin_gemm, 24 attention and 1 decode launch")
+                               window_attention=n_swin, window_attention_rows=0,
+                               crop_resample=1),
+              "the Swin-B mesh pipeline: 1 crop, 96 swin_gemm, 24 attention and 1 decode launch")
         check(equal, "the one-rank mesh Swin-B pipeline equals mesh=None bit for bit")
         res["launches"]["swin_b"] = launches
         del ssharded, out
@@ -3357,6 +3473,7 @@ def run_detector_mirrors(dev, res: dict) -> None:
 def run_doctor(card: str, res: dict) -> None:
     """(f) The doctor command in a subprocess; its rows against the card."""
     import torch
+    from multi_camera_3d_pose_estimation_tpu_torch import _native
 
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", PORT, "doctor", "--require_device",
@@ -3379,9 +3496,8 @@ def run_doctor(card: str, res: dict) -> None:
     check(dev_row[0] == "ok" and dev_row[1] == f"cuda × 1 ({name})",
           f"doctor's device row says cuda × 1 ({name})")
     kern = rows.get("kernel libraries", ("", ""))
-    check(kern[0] == "ok" and kern[1].endswith(
-        "bottleneck,fused_decode,swin_gemm,window_attention"),
-        "doctor's kernel row lists the four libraries built and loaded")
+    check(kern[0] == "ok" and kern[1].endswith(",".join(_native.SOURCES)),
+          "doctor's kernel row lists every kernel library built and loaded")
     check(rows.get("4-rank gloo CPU mesh", ("",))[0] == "ok", "doctor's gloo row is ok")
     all_ok = all(rows.get(r, ("FAIL",))[0] == "ok" for r in DOCTOR_REQUIRED)
     check((proc.returncode == 0) == all_ok and proc.returncode in (0, 1)
@@ -3495,7 +3611,7 @@ ACC_JOINT_MARGIN = 0.03
 # Through the kernels, the train drill's trained 2D error is at most
 # 1/TRAINED_RANDOM_RATIO of random init's (1/10.8 measured without kernels).
 TRAINED_RANDOM_RATIO = 5.0
-# The example's own hold (its estimators, no kernel): at most 1/2
+# The example's own hold (its estimators, no stage-1 or decode kernel): at most 1/2
 # (measured 1/10.8 at 200 steps, 1/38.7 at 3000).
 TRAIN_CLI_RANDOM_RATIO = 2.0
 TRAIN_EVAL_N = 128  # held-out images the train drill's weights are scored on
@@ -3515,15 +3631,17 @@ PARITY_W32 = {"mpjpe_3d": 0.98, "mpjpe_3d_median": 0.95, "mpjpe_3d_refined": 1.1
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside the block the stage-1 and decode wrappers compute their plain
-    versions on the card (no launch, no count): path (p) of phase 26."""
+    """Inside the block the stage-1, decode and crop wrappers compute their
+    plain versions on the card (no launch, no count; the crop's is
+    `f32_plain_crop`): path (p) of phase 26."""
     from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
 
     saved = bn._launch, fd._launch
     bn._launch, fd._launch = bn.bottleneck_block_plain, fd.heatmap_decode_raw_plain
     try:
-        yield
+        with f32_plain_crop():
+            yield
     finally:
         bn._launch, fd._launch = saved
 
@@ -3546,25 +3664,27 @@ def log_gaps(label: str, gaps: dict) -> None:
 
 
 def check_kernel_launches(label: str, launches: dict, way: str, forwards: int) -> None:
-    """(c): 4 Bottleneck launches per model forward and 1 decode launch per
-    flip-TTA pair; (a), (b) and (p): no launch."""
-    if way == "c":
-        check(launches["bottleneck"] == 4 * forwards and launches["heatmap_decode"] == forwards // 2
-              and launches["swin_gemm"] == launches["window_attention"]
-              == launches["window_attention_rows"] == 0,
-              f"{label} (c): 4 Bottleneck launches per forward and 1 decode launch per flip "
-              f"pair, {forwards} forwards")
-    else:
-        check(not any(launches.values()), f"{label} ({way}) launches no kernel")
+    """(a), (b) and (c): 1 crop launch per flip-TTA pair (the crop kernel is
+    on every card path); (c) also 4 Bottleneck launches per model forward
+    and 1 decode launch per flip-TTA pair; (p): no launch."""
+    if way == "p":
+        check(not any(launches.values()), f"{label} (p) launches no kernel")
+        return
+    stage1 = way == "c"
+    want = dict(bottleneck=4 * forwards if stage1 else 0,
+                heatmap_decode=forwards // 2 if stage1 else 0, swin_gemm=0, window_attention=0,
+                window_attention_rows=0, crop_resample=forwards // 2)
+    check(launches == want, f"{label} ({way}): {want} in {forwards} forwards")
 
 
 def deploy_ways(dev, f32_model, bf16_model, detector, scene, input_size, n_frames: int,
                 label: str) -> dict:
     """One pose model's weights deployed behind ``detector`` on the harness's
-    validation clip four ways: (a) the JAX recipe (f32, flip-TTA, DARK,
-    kernels off), (b) bf16, flip-TTA, the default decode, kernels off, (c)
-    as (b) with the stage-1 and decode kernels, (p) as (c) with each kernel
-    computing its plain version.  Every count is set to 0 just before each
+    validation clip four ways: (a) the JAX recipe (f32, flip-TTA, DARK, the
+    stage-1 and decode kernels off), (b) bf16, flip-TTA, the default decode,
+    those kernels off, (c) as (b) with the stage-1 and decode kernels, (p)
+    as (c) with each kernel wrapper (the crop's included) computing its
+    plain version.  Every count is set to 0 just before each
     deploy and read just after.  Returns {way: (metrics, the pipeline's
     output, the clip, launches, seconds)}."""
     import torch
@@ -3655,7 +3775,7 @@ def run_flagship_drill(dev, pose_steps: int, det_steps: int, n_frames: int,
     gaps = {"c_p": joint_gaps(xy("c"), xy("p")), "c_b": joint_gaps(xy("c"), xy("b")),
             "p_b": joint_gaps(xy("p"), xy("b"))}
     for key, what in (("c_p", "(c) against (p)"), ("c_b", "(c) against (b)"),
-                      ("p_b", "(p) against (b), no kernel on either")):
+                      ("p_b", "(p) against (b), no stage-1 or decode kernel on either")):
         log_gaps(f"W32 trained {what}", gaps[key])
     mb, mc = trained["b"][0], trained["c"][0]
     rel = {k: abs(mc[k] - mb[k]) / mb[k] for k in ("px_err_2d", "mpjpe_3d")}
@@ -3695,12 +3815,12 @@ def run_flagship_drill(dev, pose_steps: int, det_steps: int, n_frames: int,
 def run_train_cli_drill(dev, steps: int, workdir: str) -> dict:
     """`examples.train_synthetic_coco` at ``steps``: the train command on a
     generated COCO set of 256 images under ``workdir``, and the example's
-    score (its estimators, no kernel; trained at most
+    score (its estimators, no stage-1 or decode kernel; trained at most
     1/TRAIN_CLI_RANDOM_RATIO of random init's error).  Then the same weights
     and random init's, bf16 with flip-TTA, scored on TRAIN_EVAL_N held-out
-    images three ways: (b) no kernel, (c) the stage-1 and decode kernels,
-    (p) as (c) with each kernel computing its plain version.  Held: (c)'s
-    launches, the trained error through the kernels at most
+    images three ways: (b) no stage-1 or decode kernel, (c) the stage-1 and
+    decode kernels, (p) as (c) with each kernel wrapper (the crop's
+    included) computing its plain version.  Held: the launches, the trained error through the kernels at most
     1/TRAINED_RANDOM_RATIO of random init's, (c) against (b) on the mean,
     (c) against (p) joint by joint, and each stage-1 block and the decode
     against their plain versions on the trained weights' crops."""
@@ -3752,7 +3872,7 @@ def run_train_cli_drill(dev, steps: int, workdir: str) -> dict:
             "c_b": joint_gaps(xy["trained", "c"], xy["trained", "b"]),
             "p_b": joint_gaps(xy["trained", "p"], xy["trained", "b"])}
     for key, what in (("c_p", "(c) against (p)"), ("c_b", "(c) against (b)"),
-                      ("p_b", "(p) against (b), no kernel on either")):
+                      ("p_b", "(p) against (b), no stage-1 or decode kernel on either")):
         log_gaps(f"{res['model']} trained {what}", gaps[key])
     ratio = px["random", "c"] / px["trained", "c"]
     rel = abs(px["trained", "c"] - px["trained", "b"]) / px["trained", "b"]
@@ -3881,6 +4001,7 @@ def main() -> int:
     # 4. Each kernel against its plain version, on the main path's inputs.
     hrnet_rows = check_hrnet_kernels(pipe.estimator, blocks_u8[0], dev, launches,
                                      config=f"HRNet-W32 {INPUT[0]}x{INPUT[1]}")
+    crop_rows = check_crop_kernel(dev, launches)
 
     # 5. The pipeline on the card against the plain CPU path, small size.
     check_small_pipeline(gen, family="hrnet")
@@ -3969,7 +4090,7 @@ def main() -> int:
     # 27. Results.
     hrnet_rows[0]["flip_path_launches"] = nview["launches"]["bottleneck"]
     hrnet_rows[1]["flip_path_launches"] = nview["launches"]["heatmap_decode"]
-    for row in hrnet_rows + swin_rows + fixed_rows_json:
+    for row in hrnet_rows + crop_rows + swin_rows + fixed_rows_json:
         row["launches_phases_15_17"] = {
             path: sum(r["launches"][c] for c in ROW_COUNTERS[row["name"]])
             for path, r in paths.items()}
@@ -3997,11 +4118,12 @@ def main() -> int:
         row["launches_phase_26"] = {
             what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
             for what, n in accuracy["launches"].items()}
-    kernels = hrnet_rows + swin_rows + fixed_rows_json + published["rows"]
+    kernels = hrnet_rows + crop_rows + swin_rows + fixed_rows_json + published["rows"]
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]
-    print(json.dumps({"kernels": kernels, "frames_per_s": fps, "swin_frames_per_s": swin["fps"],
+    print(json.dumps({"kernels": kernels, "frames_per_s": fps,
+                      "swin_frames_per_s": swin["fps"],
                       "swin_fixed_frames_per_s": fixed["fps"],
                       "nview_flip_frames_per_s": nview["fps"],
                       "refine_epochs_per_s": refine["epochs_per_s"],

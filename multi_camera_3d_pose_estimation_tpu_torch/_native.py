@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "build_dir", "library", "check", "refuse_auto
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("bottleneck", "fused_decode", "swin_gemm", "window_attention")
+SOURCES = ("bottleneck", "crop_resample", "fused_decode", "swin_gemm", "window_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -8,20 +8,16 @@ frames (B, H, W, 3), crops (B, in_h, in_w, 3), heatmaps (B, K, h, w),
 keypoints (B, K, 3) = (x_px, y_px, score), gaussians (B, K, 6) =
 [mean_x, mean_y, var_x, cov_xy, cov_xy, var_y] in image pixels.
 
-The crop resample reproduces ``jax.image.scale_and_translate(method="linear")``,
-which antialiases when it downscales: per box, a (out, in) triangle-kernel
-weight matrix per axis, widened by 1/scale when scale < 1, renormalised per
-output sample and zero where the sample falls outside the image, applied as
-two batched matmuls.  ``F.interpolate`` and ``grid_sample`` do not compute
-this.  The weights come from f32 scale and offset; only the pixel data
-follows the frames' dtype.
+The crop (box fit, antialiased resample, normalize) is `ops.crop_resample`:
+one CUDA kernel on the card, `crop_frames` + the normalize on the CPU.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from ..ops.crop_resample import (IMAGENET_MEAN, IMAGENET_STD, center_scale_from_bbox,
+                                 crop_frames, crop_resample)
 from ..ops.fused_decode import fused_heatmap_decode
 from ..ops.heatmap_decode import heatmap_argmax_decode, heatmap_dark_decode
 from ..ops.moments import heatmap_moments
@@ -39,72 +35,12 @@ __all__ = [
     "TopDownEstimator",
 ]
 
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-
-_F32_EPS = float(np.finfo(np.float32).eps)
-
-
-def center_scale_from_bbox(bboxes: torch.Tensor, aspect_ratio: float, padding: float = 1.25):
-    """(x0, y0, x1, y1) boxes (..., 4) -> center (..., 2), size (..., 2),
-    the box padded and expanded to the aspect ratio w/h."""
-    x0, y0, x1, y1 = bboxes.unbind(-1)
-    center = torch.stack([(x0 + x1) * 0.5, (y0 + y1) * 0.5], dim=-1)
-    w = (x1 - x0) * padding
-    h = (y1 - y0) * padding
-    w_fit = torch.maximum(w, h * aspect_ratio)
-    h_fit = torch.maximum(h, w / aspect_ratio)
-    return center, torch.stack([w_fit, h_fit], dim=-1)
-
-
-def _weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
-                translation: torch.Tensor) -> torch.Tensor:
-    """Per-box linear resample weights (B, out_size, in_size), as
-    ``jax.image`` computes them (``compute_weight_mat``, antialias on)."""
-    dt, dev = scale.dtype, scale.device
-    inv_scale = 1.0 / scale
-    kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample_f = ((torch.arange(out_size, dtype=dt, device=dev) + 0.5)[None, :] * inv_scale[:, None]
-                - (translation * inv_scale)[:, None] - 0.5)  # (B, out)
-    x = (sample_f[:, :, None] - torch.arange(in_size, dtype=dt, device=dev)[None, None, :]).abs()
-    weights = torch.clamp(1.0 - x / kernel_scale[:, None, None], min=0.0)
-    total = weights.sum(-1, keepdim=True)
-    weights = torch.where(total.abs() > 1000.0 * _F32_EPS,
-                          weights / torch.where(total != 0, total, torch.ones_like(total)),
-                          torch.zeros_like(weights))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[:, :, None], weights, torch.zeros_like(weights))
-
-
-def crop_frames(frames: torch.Tensor, center: torch.Tensor, size: torch.Tensor,
-                out_hw: tuple[int, int]):
-    """Axis-aligned affine crop (B, H, W, 3) -> (B, out_h, out_w, 3).
-
-    Returns (crops, scale (B, 2), offset (B, 2)) with
-    ``img_xy = crop_xy / scale + offset``.
-    """
-    out_h, out_w = out_hw
-    B, H, W, ch = frames.shape
-    x0 = center[:, 0] - size[:, 0] * 0.5
-    y0 = center[:, 1] - size[:, 1] * 0.5
-    sx = out_w / size[:, 0]
-    sy = out_h / size[:, 1]
-    wy = _weight_mat(H, out_h, sy, -y0 * sy).to(frames.dtype)  # (B, out_h, H)
-    wx = _weight_mat(W, out_w, sx, -x0 * sx).to(frames.dtype)  # (B, out_w, W)
-    rows = torch.matmul(wy, frames.reshape(B, H, W * ch)).reshape(B, out_h, W, ch)
-    crops = torch.matmul(wx[:, None], rows)  # (B, out_h, out_w, ch)
-    return crops, torch.stack([sx, sy], dim=-1), torch.stack([x0, y0], dim=-1)
-
 
 def preprocess_crops(frames, bboxes, input_size, bbox_padding: float = 1.25):
     """Aspect-fitted padded crop, linear resample and ImageNet normalization
-    in ``frames.dtype``.  Returns (crops (B, in_h, in_w, 3), scale, offset)."""
-    in_w, in_h = input_size
-    center, size = center_scale_from_bbox(bboxes, in_w / in_h, bbox_padding)
-    crops, scale, offset = crop_frames(frames, center, size, (in_h, in_w))
-    mean = torch.as_tensor(IMAGENET_MEAN, device=crops.device).to(crops.dtype)
-    std = torch.as_tensor(IMAGENET_STD, device=crops.device).to(crops.dtype)
-    return (crops - mean) / std, scale, offset
+    in ``frames.dtype`` (`ops.crop_resample`: the crop kernel for frames on
+    the card).  Returns (crops (B, in_h, in_w, 3), scale, offset)."""
+    return crop_resample(frames, bboxes, input_size, bbox_padding)
 
 
 class TopDownEstimator:

@@ -22,7 +22,9 @@ of their own binade apart.  The attention's row mode (the fixed-order
 layout) and the fixed-order block are held the same way, on a padded map
 whose crops carry alignment rows (12x10, window 7: 196 tokens, P = 200);
 the attention also at every Swin-B stage in both modes, row mode bit for
-bit equal to the chained mode on the same windows.
+bit equal to the chained mode on the same windows.  The crop kernel sums
+in f32 where the plain form rounds to the frames' dtype between steps: it
+is held to the plain form computed in f32 and rounded once.
 """
 
 import pytest
@@ -130,6 +132,78 @@ def _close_bf16(out, ref, steps):
     assert d.max() <= steps * 2 ** -8 * ref.abs().max(), d.max()
     step = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
     assert (d > step).float().mean() < 0.01
+
+
+# The crop kernel against the plain form computed in f32 on the CPU
+# (`crop_and_normalize` on f32 frames, rounded once to the frames' dtype):
+# bf16 within one bf16 step of the largest output, under 1% of outputs more
+# than one step of their own binade off; f32 at 1e-5; scale and offset bit
+# for bit the CPU's.  Cases: downscales, an upscale and edge-crossing boxes;
+# the benchmark's crop (8 VGA frames, full-frame boxes); a 3840x2160
+# downscale (4 column chunks, 53 row taps: two tap groups); boxes wholly
+# outside the frame; B = 1; HRNet-W48's 288x384 input; a width whose rows
+# are not whole 16-byte vectors, and a base off 16 bytes (scalar loads).
+CROP_BOXES = [[0.0, 0.0, 80.0, 96.0], [8.0, 4.0, 72.0, 92.0], [30.0, 40.0, 42.0, 52.0],
+              [-20.0, 60.0, 50.0, 130.0], [70.0, -10.0, 95.0, 20.0]]
+CROP_CASES = {
+    "boxes": ((5, 96, 80), CROP_BOXES, (32, 64)),
+    "vga": ((8, 480, 640), [[0.0, 0.0, 640.0, 480.0]] * 8, (192, 256)),
+    "uhd": ((2, 2160, 3840), [[0.0, 0.0, 3840.0, 2160.0], [1000.0, 200.0, 1900.0, 2100.0]],
+            (192, 256)),
+    "outside": ((2, 96, 80), [[200.0, 300.0, 260.0, 400.0], [-90.0, -90.0, -10.0, -10.0]],
+                (32, 64)),
+    "one": ((1, 96, 80), [[8.0, 4.0, 72.0, 92.0]], (32, 64)),
+    "w48": ((3, 480, 640), [[0.0, 0.0, 640.0, 480.0], [100.0, 50.0, 300.0, 470.0],
+                            [-50.0, 10.0, 200.0, 300.0]], (288, 384)),
+    "odd_width": ((3, 37, 13), [[0.0, 0.0, 13.0, 37.0], [2.0, 5.0, 9.0, 30.0],
+                                [-3.0, 20.0, 8.0, 44.0]], (24, 32)),
+    "misaligned": ((2, 96, 80), CROP_BOXES[:2], (32, 64)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(CROP_CASES))
+def test_crop_kernel_matches_plain(card, name, dtype):
+    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import preprocess_crops
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
+
+    shape, boxes, size = CROP_CASES[name]
+    gen = torch.Generator().manual_seed(len(name))
+    frames = torch.rand(shape + (3,), generator=gen).to(dtype)
+    boxes = torch.tensor(boxes)
+    ref = cr.crop_and_normalize(frames.float(), boxes, size)
+    x = frames.to(card)
+    if name == "misaligned":  # the same frames one element past a 16-byte boundary
+        x = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    n = cr.crop_resample.launches
+    out = preprocess_crops(x, boxes.to(card), size)
+    torch.cuda.synchronize()
+    assert cr.crop_resample.launches == n + 1
+    crops = out[0].cpu()
+    assert crops.dtype == dtype and crops.shape == ref[0].shape
+    if dtype == torch.bfloat16:
+        _close_bf16(crops, ref[0].to(dtype), 1)
+    else:
+        assert ((crops - ref[0]).abs() <= 1e-5 + 1e-5 * ref[0].abs()).all()
+    assert torch.equal(out[1].cpu(), ref[1]) and torch.equal(out[2].cpu(), ref[2])
+    if name == "outside":
+        const = (-torch.tensor([0.485, 0.456, 0.406]) / torch.tensor([0.229, 0.224, 0.225]))
+        const = const.to(dtype)
+        assert torch.equal(crops, const.expand_as(crops))
+
+
+def test_crop_kernel_refuses_autograd_and_other_dtypes(card):
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
+
+    frames = torch.rand(2, 16, 16, 3, device=card)
+    boxes = torch.tensor([[0.0, 0.0, 16.0, 16.0]] * 2, device=card)
+    with pytest.raises(RuntimeError, match="crop kernel"):
+        cr.crop_resample(frames.clone().requires_grad_(True), boxes, (8, 16))
+    with pytest.raises(TypeError):
+        cr.crop_resample(frames.half(), boxes, (8, 16))
+    with pytest.raises(TypeError):
+        cr.crop_resample(frames, boxes.double(), (8, 16))
 
 
 def _swin_params(gen, C, heads, ratio, device):

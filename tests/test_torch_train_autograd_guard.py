@@ -17,6 +17,7 @@ import torch
 from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNet
 from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SwinPose
 from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
+from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
 from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
 from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
 from multi_camera_3d_pose_estimation_tpu_torch.ops import window_attention as wa
@@ -42,10 +43,14 @@ def _calls():
     w = torch.randn(12, 16, generator=g)
     b = torch.randn(12, generator=g)
     rows = torch.as_tensor(window_roll_perm(2, 4, 2, 0, 0).astype(np.int32))
+    frames = torch.rand(2, 12, 10, 3, generator=g)
+    boxes = torch.tensor([[0.0, 0.0, 10.0, 12.0], [2.0, 3.0, 7.0, 9.0]])
     return {
         "bottleneck": ("bottleneck kernel", lambda r: bn.fused_bottleneck_block(r(x), p)),
         "bottleneck_weights": ("bottleneck kernel", lambda r: bn.fused_bottleneck_block(
             x, {**p, "w1": r(p["w1"])})),
+        "crop": ("crop kernel", lambda r: cr.crop_resample(r(frames), boxes, (8, 16))),
+        "crop_boxes": ("crop kernel", lambda r: cr.crop_resample(frames, r(boxes), (8, 16))),
         "decode": ("heatmap decode kernel", lambda r: fd.heatmap_decode_raw(r(maps), 6)),
         "fused_decode": ("heatmap decode kernel",
                          lambda r: fd.fused_heatmap_decode(r(maps).view(3, 8, 6))),
