@@ -3,15 +3,17 @@
 
 The window drives the estimate step as a user runs it, minus video
 decode: a pipeline from ``cli.estimate.build_estimate_pipeline`` (the
-project directory and an MMPose-format checkpoint written here from the
-seed), fed by ``io.stage_blocks`` from the traffic's host blocks and
-drained by ``cli.estimate.run_pipeline_on_blocks`` with the traffic's
-``inflight``, closed loop: a block is handed over as soon as the staging
-ring takes it.  The generator stamps each block as it hands it over; the
-``on_block`` hook (the live preview's) stamps it as its three artifacts
-reach host memory.  The window opens at the first hand-off and closes
+project directory and a checkpoint of each model in MMPose's or MMDet's
+format, written here from the seed), fed by ``io.stage_blocks`` from the
+traffic's host blocks and drained by ``cli.estimate.run_pipeline_on_blocks``
+with the traffic's ``inflight``, closed loop: a block is handed over as
+soon as the staging ring takes it.  The generator stamps each block as it
+hands it over; the ``on_block`` hook (the live preview's) stamps it as its
+three artifacts reach host memory.  The window opens at the first hand-off and closes
 ``seconds`` later; no block is handed over after it, and the blocks in
-flight are drained and judged but not counted.
+flight are drained and judged but not counted.  What the reference runs
+and how it judges are the modules the cell's configuration names
+(`catalog`).
 """
 
 from __future__ import annotations
@@ -28,9 +30,7 @@ import torch
 from . import bounds
 from .catalog import Catalog
 from .devtrace import SPAN, DeviceTrace
-from .judge import MEANS, NAMES, judge
-from .reference import EXACT, HEAD_KEY, build_model, no_tf32
-from .reference.pipeline import crops_of, run_block
+from .reference import EXACT, build_model, no_tf32
 from .rig import make_rig, write_project
 from .traffic import cycle_blocks, make_blocks
 from .weights import calibrate_head, draw_state_dict
@@ -57,6 +57,9 @@ STRETCHES = ("device", "host")
 _BIG = 1e300  # stands for +inf in the JSON line
 # Frames of the first block whose crops set the heatmaps' scale.
 CALIBRATION_FRAMES = 8
+# The generator stream (`weights.sub_seed`) of each model's weights; the
+# traffic takes stream 1.
+STREAMS = {"pose": 0, "detector": 2}
 
 
 def forbidden_modules() -> list:
@@ -128,61 +131,85 @@ def _percentile(values: list, q: int) -> float:
 
 class Cell:
     """A cell's inputs for one seed: its configuration, traffic, limits and
-    rig, the seeded weights (a state dict in MMPose's format) and the host
-    blocks; made by the benchmark, handed the same to the program and to
-    the reference."""
+    rig, the seeded weights of each model (state dicts in MMPose's or
+    MMDet's format: the pose model's, and a detector's where the
+    configuration names one) and the host blocks; made by the benchmark,
+    handed the same to the program and to the reference.  The models'
+    family modules and the pipeline module (reference block, judge) are
+    those the configuration names (`catalog`)."""
 
     def __init__(self, cat: Catalog, workload: str, seed: int, device):
         wl = cat.workload(workload)
-        self.workload, self.seed, self.device = workload, seed, device
+        self.workload, self.seed, self.device, self.root = workload, seed, device, cat.root
         self.cfg, self.traffic = cat.config(wl["config"]), cat.traffic(wl["traffic"])
         self.limits = cat.limits(workload)
+        self.pipe = cat.pipeline(self.cfg)
         self.T, self.C = self.traffic["block_size"], self.traffic["rig"]["cameras"]
         self.rig = make_rig(self.traffic["rig"], self.traffic["width"], self.traffic["height"])
-        self.meta = build_model(self.cfg, "meta")
+        self.model_cfgs = {"pose": self.cfg}
+        if "detector" in self.cfg:
+            self.model_cfgs["detector"] = self.cfg["detector"]
+        families = {role: cat.family(c["family"]) for role, c in self.model_cfgs.items()}
+        self.meta = {role: build_model(c, "meta", root=self.root)
+                     for role, c in self.model_cfgs.items()}
         self.host = make_blocks(self.traffic, seed, device)
-        self.state = draw_state_dict(self.meta, seed, device)
-        model = build_model(self.cfg, device)
-        model.load_state_dict(self.state, strict=True)
+        self.states = {role: draw_state_dict(self.meta[role], seed, device, STREAMS[role],
+                                             getattr(families[role], "weight_kind", None))
+                       for role in self.model_cfgs}
+        models = self.reference_models()
         frames = torch.from_numpy(self.host[0][:CALIBRATION_FRAMES]).to(device)
         with no_tf32():
-            self.head_scale = calibrate_head(model, crops_of(frames, self.cfg), self.state,
-                                             self.cfg["head_peak"], HEAD_KEY)
-        del model
+            self.head_scale = calibrate_head(
+                models["pose"], self.pipe.calibration_crops(models, frames, self.cfg),
+                self.states["pose"], self.cfg["head_peak"], families["pose"].HEAD_KEY)
+        del models
+
+    def reference_models(self, rounding=EXACT) -> dict:
+        """{role: the reference model holding the cell's weights} on the
+        cell's device, its products rounded by ``rounding``."""
+        models = {}
+        for role, c in self.model_cfgs.items():
+            models[role] = build_model(c, self.device, rounding, root=self.root)
+            models[role].load_state_dict(self.states[role], strict=True)
+        return models
 
     def pipeline(self):
         """The program's pipeline, as ``cli.estimate`` builds it: a project
-        directory and a checkpoint file written under ``TMPDIR``, removed
-        once read."""
+        directory and a checkpoint file of each model written under
+        ``TMPDIR``, removed once read; the pipeline module's
+        ``program_kwargs`` add the estimate CLI's other keywords."""
         from multi_camera_3d_pose_estimation_tpu_torch.cli.estimate import \
             build_estimate_pipeline
 
         with tempfile.TemporaryDirectory(prefix="port_bench_") as project:
             write_project(project, self.rig)
-            ckpt = os.path.join(project, "weights.pth")
-            torch.save({"state_dict": self.state}, ckpt)
+            checkpoints = {}
+            for role, state in self.states.items():
+                checkpoints[role] = os.path.join(project, f"{role}.pth")
+                torch.save({"state_dict": state}, checkpoints[role])
             return build_estimate_pipeline(
-                project, pose_estimation_model=self.cfg["registry_name"], checkpoint=ckpt,
-                conf_threshold=self.cfg["conf_threshold"], num_joints=self.cfg["num_joints"],
-                estimator_kwargs=self.cfg["estimator_kwargs"], device=self.device)
+                project, pose_estimation_model=self.cfg["registry_name"],
+                checkpoint=checkpoints["pose"], conf_threshold=self.cfg["conf_threshold"],
+                num_joints=self.cfg["num_joints"], estimator_kwargs=self.cfg["estimator_kwargs"],
+                device=self.device, **self.pipe.program_kwargs(self.cfg, checkpoints))
 
     def rig_tensors(self) -> dict:
         return {k: torch.as_tensor(self.rig[k], dtype=torch.float64, device=self.device)
                 for k in ("K", "R", "T", "dist")}
 
     def references(self, rounding=EXACT) -> list:
-        """`reference.pipeline.run_block` of each host block, float32 with
+        """The pipeline's ``run_block`` of each host block, float32 with
         TF32 off (``rounding``: EXACT, or CONTROL for the control)."""
-        model = build_model(self.cfg, self.device, rounding)
-        model.load_state_dict(self.state, strict=True)
+        models = self.reference_models(rounding)
         rig = self.rig_tensors()
         with no_tf32():
-            return [run_block(model, torch.from_numpy(b).to(self.device), self.cfg, rig,
-                              rounding) for b in self.host]
+            return [self.pipe.run_block(models, torch.from_numpy(b).to(self.device), self.cfg,
+                                        rig, rounding) for b in self.host]
 
     def judge(self, outputs: tuple, n_blocks: int, refs: list) -> dict:
         with no_tf32():
-            return judge(outputs, n_blocks, refs, self.rig_tensors(), self.cfg, self.device)
+            return self.pipe.judge(outputs, n_blocks, refs, self.rig_tensors(), self.cfg,
+                                   self.device)
 
 
 def run_cell(cat: Catalog, workload: str, seed: int, seconds: float, trace: bool,
@@ -291,9 +318,7 @@ def run_cell(cat: Catalog, workload: str, seed: int, seconds: float, trace: bool
         ctx = {"trace": on_host, "device_trace": on_device, "cfg": cfg, "traffic": traffic,
                "crops_per_block": T * C, "untraced_s": untraced_s,
                "untraced_frames": len(untraced) * T, "h2d_ms": h2d, "bounds": bounds,
-               "flops_per_crop": bounds.model_flops_per_crop(
-                   lambda: cell.meta(torch.empty((1, 3, cfg["input_size"][1],
-                                                  cfg["input_size"][0]), device="meta")))}
+               "flops_per_crop": cell.pipe.flops_per_crop(cell.meta, cfg, traffic)}
         for m in cat.metrics("per_layer", workload):
             value = cat.reader(m["name"])(ctx)
             if value is not None:
@@ -309,11 +334,12 @@ def run_cell(cat: Catalog, workload: str, seed: int, seconds: float, trace: bool
     t_ref = time.perf_counter()
     verdict = cell.judge(outputs, len(done), cell.references())
     numbers = verdict["numbers"]
-    compared = [n for n in NAMES if n in limits]
+    names, means = cell.pipe.NAMES, cell.pipe.MEANS
+    compared = [n for n in names if n in limits]
     # A block fails where its worst joint is over a limit, or where its
     # mean is over the limit of a mean that fails the run.
     flagged = [n for n in compared
-               if n not in MEANS or numbers[n] > limits[n]["limit"]]
+               if n not in means or numbers[n] > limits[n]["limit"]]
     over = sum(bool(any(verdict["per_block"][n][b] > limits[n]["limit"] for n in flagged))
                for b in range(len(done)))
     missing = len(handoff) - len(done)
@@ -322,7 +348,7 @@ def run_cell(cat: Catalog, workload: str, seed: int, seconds: float, trace: bool
     log(f"port_bench: reference and judge {time.perf_counter() - t_ref:.3f} s over "
         f"{len(done)} blocks")
     checks = {n: {"value": min(numbers[n], _BIG), "limit": limits[n]["limit"]} for n in compared}
-    for n in NAMES:
+    for n in names:
         if n not in compared:
             log(f"port_bench: not compared {n} {numbers[n]!r}")
     for n in compared:

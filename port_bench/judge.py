@@ -1,5 +1,7 @@
-"""What decides ``correct``: every block the timed path finished, judged
-against the reference's outputs for its frames.
+"""What decides ``correct`` in a cell of the top-down heatmap pipeline
+(``reference/pipelines/topdown_full_frame.py``, which exports it; another
+pipeline module brings its own judge): every block the timed path
+finished, judged against the reference's outputs for its frames.
 
 Numbers over every joint of every finished block, the worst joint's or
 the mean (`MEANS`); a cell compares those its limits file names:

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from .lowp import EXACT
 
-__all__ = ["HRNetRef"]
+__all__ = ["HRNetRef", "MODEL", "HEAD_KEY"]
 
 
 class _Conv(nn.Conv2d):
@@ -170,10 +170,15 @@ class HRNetRef(nn.Module):
     """``forward(crops)``: normalized crops (B, 3, H, W) float32 -> heatmaps
     (B, K, H/4, W/4) float32."""
 
-    def __init__(self, cfg: dict, num_joints: int = 17):
+    def __init__(self, cfg: dict):
         super().__init__()
         self.backbone = _Backbone(cfg)
-        self.head = _Head(cfg["widths"][0], num_joints)
+        self.head = _Head(cfg["widths"][0], cfg["num_joints"])
 
     def forward(self, x):
         return self.head(self.backbone(x))
+
+
+# The family's exports (`port_bench.catalog`).
+MODEL = HRNetRef
+HEAD_KEY = "head.final_layer.weight"

@@ -1,18 +1,23 @@
-"""One block of frames through the whole reference: full-frame boxes, crop,
-the 2D model, decode, the confidence gate and the best-two-view DLT, with
-the program's output layouts (kpts_2d (T, K, 3, C), heatmaps_2d (T, C, K,
-6), kpts_3d (T, K, 3)) beside what the judge reads (the maps, the crop
-geometry, the decoded peaks and moments in heatmap pixels)."""
+"""The pipeline of a configuration that names none: one block of frames
+through the whole reference, full-frame boxes, crop, the 2D model, heatmap
+decode, the confidence gate and the best-two-view DLT, with the program's
+output layouts (kpts_2d (T, K, 3, C), heatmaps_2d (T, C, K, 6), kpts_3d (T,
+K, 3)) beside what the judge (`port_bench.judge`) reads (the maps, the crop
+geometry, the decoded peaks and moments in heatmap pixels).  The program
+runs the estimate CLI's default detector, ``full_frame``."""
 
 from __future__ import annotations
 
 import torch
 
-from .lowp import EXACT
-from .topdown import crop, crop_geometry, decode_maps, to_image
-from .triangulate import triangulate_top2
+from port_bench.bounds import model_flops_per_crop
+from port_bench.judge import MEANS, NAMES, judge
+from port_bench.reference.lowp import EXACT
+from port_bench.reference.topdown import crop, crop_geometry, decode_maps, to_image
+from port_bench.reference.triangulate import triangulate_top2
 
-__all__ = ["run_block", "crops_of"]
+__all__ = ["calibration_crops", "run_block", "judge", "NAMES", "MEANS", "program_kwargs",
+           "flops_per_crop"]
 
 
 def _full_frames(frames_u8: torch.Tensor, cfg: dict):
@@ -24,7 +29,7 @@ def _full_frames(frames_u8: torch.Tensor, cfg: dict):
     return (frames,) + crop_geometry(boxes, cfg["input_size"], cfg["bbox_padding"])
 
 
-def crops_of(frames_u8: torch.Tensor, cfg: dict) -> torch.Tensor:
+def calibration_crops(models: dict, frames_u8: torch.Tensor, cfg: dict) -> torch.Tensor:
     """The normalized full-frame crops (T·C, 3, in_h, in_w) of frames (T, C,
     H, W, 3) uint8, float32."""
     frames, origin, scale = _full_frames(frames_u8, cfg)
@@ -32,9 +37,10 @@ def crops_of(frames_u8: torch.Tensor, cfg: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def run_block(model, frames_u8: torch.Tensor, cfg: dict, rig: dict, rounding=EXACT,
+def run_block(models: dict, frames_u8: torch.Tensor, cfg: dict, rig: dict, rounding=EXACT,
               chunk: int = 64) -> dict:
-    """frames_u8 (T, C, H, W, 3) uint8 on the model's device."""
+    """frames_u8 (T, C, H, W, 3) uint8 on the models' device."""
+    model = models["pose"]
     T, C = frames_u8.shape[:2]
     N = T * C
     frames, origin, scale = _full_frames(frames_u8, cfg)
@@ -56,3 +62,15 @@ def run_block(model, frames_u8: torch.Tensor, cfg: dict, rig: dict, rounding=EXA
             "xy_hm": xy_hm, "score": score, "mom_hm": mom_hm,
             "kpts_2d": torch.cat([xy, conf[..., None]], -1).transpose(-1, -2),
             "heatmaps_2d": gauss.reshape(T, C, K, 6), "kpts_3d": kpts_3d}
+
+
+def program_kwargs(cfg: dict, checkpoints: dict) -> dict:
+    """None beyond the pose model's: the CLI's default detector."""
+    return {}
+
+
+def flops_per_crop(meta_models: dict, cfg: dict, traffic: dict) -> float:
+    """The 2D model's operations for one crop."""
+    in_w, in_h = cfg["input_size"]
+    return model_flops_per_crop(
+        lambda: meta_models["pose"](torch.empty((1, 3, in_h, in_w), device="meta")))

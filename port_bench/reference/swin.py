@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from .lowp import EXACT
 
-__all__ = ["SwinRef", "relative_position_index", "shift_mask"]
+__all__ = ["SwinRef", "MODEL", "HEAD_KEY", "relative_position_index", "shift_mask"]
 
 
 class _Linear(nn.Linear):
@@ -242,11 +242,16 @@ class SwinRef(nn.Module):
     """``forward(crops)``: normalized crops (B, 3, H, W) float32 -> heatmaps
     (B, K, H/4, W/4) float32."""
 
-    def __init__(self, cfg: dict, num_joints: int = 17):
+    def __init__(self, cfg: dict):
         super().__init__()
         self.backbone = _Backbone(cfg)
         cin = cfg["embed"] * 2 ** (len(cfg["depths"]) - 1)
-        self.head = _Head(cin, cfg["deconv"], num_joints)
+        self.head = _Head(cin, cfg["deconv"], cfg["num_joints"])
 
     def forward(self, x):
         return self.head(self.backbone(x).permute(0, 3, 1, 2))
+
+
+# The family's exports (`port_bench.catalog`).
+MODEL = SwinRef
+HEAD_KEY = "head.final_layer.weight"

@@ -1,7 +1,8 @@
 """Shared set-up of the benchmark's own tests: the repository root on the
 path, and the test-sized benchmark under ``data/`` (a ``BENCHMARK.json``
 with two small cells, their configurations, traffic and limits), put
-together with the benchmark's metric readers in a directory of its own."""
+together with the benchmark's metric readers and reference modules in a
+directory of its own."""
 
 import os
 import shutil
@@ -17,11 +18,14 @@ DATA = os.path.join(HERE, "data")
 
 
 def tiny_root(path) -> str:
-    """The test-sized benchmark under ``path``: ``data/`` and the metric
-    readers of ``port_bench/metrics``."""
+    """The test-sized benchmark under ``path``: ``data/``, the metric
+    readers of ``port_bench/metrics`` and the family and pipeline modules
+    of ``port_bench/reference``."""
     shutil.copytree(DATA, path, dirs_exist_ok=True)
-    shutil.copytree(os.path.join(ROOT, "port_bench", "metrics"),
-                    os.path.join(path, "port_bench", "metrics"), dirs_exist_ok=True)
+    for part in ("metrics", "reference"):
+        shutil.copytree(os.path.join(ROOT, "port_bench", part),
+                        os.path.join(path, "port_bench", part), dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     return str(path)
 
 

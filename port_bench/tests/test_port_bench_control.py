@@ -13,8 +13,7 @@ import pytest
 from port_bench.calibrate import readings
 from port_bench.catalog import Catalog
 from port_bench.harness import Cell, run_cell
-from port_bench.reference import MODEL_CONTROL, build_model, no_tf32
-from port_bench.reference.pipeline import run_block
+from port_bench.reference import MODEL_CONTROL, no_tf32
 
 from conftest import ROOT
 
@@ -38,13 +37,12 @@ class _ReferenceInPlace:
 
     def __init__(self, pipeline, cell: Cell, rounding):
         self.pipeline, self.cell, self.rounding = pipeline, cell, rounding
-        self.model = build_model(cell.cfg, cell.device, rounding)
-        self.model.load_state_dict(cell.state, strict=True)
+        self.models = cell.reference_models(rounding)
 
     def run(self, frames, bboxes=None):
         with no_tf32():
-            out = run_block(self.model, frames, self.cell.cfg, self.cell.rig_tensors(),
-                            self.rounding)
+            out = self.cell.pipe.run_block(self.models, frames, self.cell.cfg,
+                                           self.cell.rig_tensors(), self.rounding)
         return {k: out[k] for k in ("kpts_2d", "heatmaps_2d", "kpts_3d")}
 
     def __getattr__(self, name):

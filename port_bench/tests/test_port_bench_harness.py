@@ -117,7 +117,9 @@ def test_harness_and_program_path_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    names = _loaded_top_names(["port_bench.reference", "port_bench.reference.pipeline",
+    names = _loaded_top_names(["port_bench.reference", "port_bench.reference.hrnet",
+                               "port_bench.reference.swin",
+                               "port_bench.reference.pipelines.topdown_full_frame",
                                "port_bench.reference.triangulate", "port_bench.judge",
                                "port_bench.bounds", "port_bench.weights"])
     assert not names & (set(FORBIDDEN) | {"multi_camera_3d_pose_estimation_tpu_torch"})

@@ -1,10 +1,14 @@
 """Seeded weights in MMPose's checkpoint format.
 
 The names and shapes are those of the reference model's ``state_dict``
-(MMPose's names), the values are drawn on ``device`` from one
-``torch.Generator`` seeded from ``--seed``, in two calls (one normal, one
-uniform draw for every tensor at once), in float32: the type an MMPose
-checkpoint holds.  The distributions (each a scale of those two draws):
+(MMPose's or MMDet's names), the values are drawn on ``device`` from one
+``torch.Generator`` seeded from ``--seed`` and the model's stream (`sub_seed`:
+0 the pose model, 1 the traffic, 2 a detector), in two calls (one normal,
+one uniform draw for every tensor at once), in float32: the type an MMPose
+checkpoint holds.  A tensor that two names share (a module bound twice,
+as MMDet's shared head convs are) is drawn once, under its first name in
+sorted order, and the other names hold a copy.  The distributions (each a
+scale of those two draws):
 
 - conv, linear and transposed-conv kernels: N(0, 1 / fan_in), the fan-in
   of a transposed conv being the taps that reach one output,
@@ -16,7 +20,10 @@ checkpoint holds.  The distributions (each a scale of those two draws):
   statistics changes the result;
 - relative-position bias tables N(0, 1), the scale of trained tables
   (N(0, 0.02²) would move the attention by about 1e-3, under any check);
-- ``num_batches_tracked``: 0.
+- ``num_batches_tracked``: 0;
+- any other name: what the family module's ``weight_kind(key, module,
+  param)`` gives, ``("normal", std)``, ``("uniform", (a, b))`` or
+  ``("zero", None)``; a name that it leaves out (None) raises.
 
 Then `calibrate_head` scales the final 1x1 conv (kernel and bias) so that
 the reference's heatmaps of a few of the cell's own crops peak at
@@ -46,11 +53,12 @@ def sub_seed(seed: int, stream: int) -> int:
     return (int(seed) * 1_000_003 + 7919 * (stream + 1)) & _MASK63
 
 
-def _kinds(model: nn.Module) -> dict:
+def _kinds(model: nn.Module, weight_kind=None) -> dict:
     """{state_dict key: (kind, scale)}: kind "normal" or "uniform" (a, b),
-    "zero"."""
+    "zero"; ``weight_kind(key, module, param)`` for the names that the
+    rules here do not cover."""
     kinds = {}
-    for mname, mod in model.named_modules():
+    for mname, mod in model.named_modules(remove_duplicate=False):
         prefix = f"{mname}." if mname else ""
         norm = isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm))
         for pname, p in list(mod.named_parameters(recurse=False)) + list(
@@ -78,23 +86,35 @@ def _kinds(model: nn.Module) -> dict:
                     fan_in = p[0].numel()
                 kinds[key] = ("normal", 1.0 / math.sqrt(fan_in))
             else:
-                raise ValueError(f"no distribution for {key} ({type(mod).__name__})")
+                kind = weight_kind(key, mod, p) if weight_kind is not None else None
+                if kind is None:
+                    raise ValueError(f"no distribution for {key} ({type(mod).__name__}): add a "
+                                     f"rule for it in the family module's weight_kind")
+                kinds[key] = kind
     missing = set(model.state_dict()) - set(kinds)
     if missing:
-        raise ValueError(f"no distribution for {sorted(missing)[:5]}")
+        raise ValueError(f"no distribution for {sorted(missing)[:5]}: add a rule for them in "
+                         f"the family module's weight_kind")
     return kinds
 
 
-def draw_state_dict(model: nn.Module, seed: int, device) -> dict:
+def draw_state_dict(model: nn.Module, seed: int, device, stream: int = 0,
+                    weight_kind=None) -> dict:
     """The float32 state dict (on the CPU, views of one buffer) of
-    ``model``'s names and shapes, drawn from ``seed`` on ``device``."""
-    kinds = _kinds(model)
-    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    ``model``'s names and shapes, drawn from stream ``stream`` of ``seed``
+    on ``device``; ``weight_kind``: the family module's, or None."""
+    kinds = _kinds(model, weight_kind)
+    tensors = model.state_dict(keep_vars=True)
+    first = {}
+    for k in sorted(tensors):
+        first.setdefault(id(tensors[k]), k)
+    copies = {k: first[id(t)] for k, t in tensors.items() if first[id(t)] != k}
+    shapes = {k: tuple(v.shape) for k, v in tensors.items() if k not in copies}
     keys = sorted(shapes)
     sizes = {k: math.prod(shapes[k]) for k in keys}
     n_normal = sum(sizes[k] for k in keys if kinds[k][0] == "normal")
     n_uniform = sum(sizes[k] for k in keys if kinds[k][0] == "uniform")
-    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 0))
+    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, stream))
     normal = torch.randn(n_normal, generator=gen, device=device)
     uniform = torch.rand(n_uniform, generator=gen, device=device)
     parts, at_n, at_u = [], 0, 0
@@ -116,6 +136,8 @@ def draw_state_dict(model: nn.Module, seed: int, device) -> dict:
         t = flat[at:at + sizes[k]].view(shapes[k])
         out[k] = t.long() if k.endswith("num_batches_tracked") else t
         at += sizes[k]
+    for k, src in copies.items():
+        out[k] = out[src].clone()
     return out
 
 
