@@ -25,7 +25,15 @@ A family module exports:
 - ``HEAD_KEY``: the state-dict key of the final layer's kernel, which
   `weights.calibrate_head` scales (a pose model's);
 - optionally ``weight_kind(key, module, param)``: the distribution
-  (`weights`) of a parameter that the shared rules do not cover, or None.
+  (`weights`) of a parameter or buffer, asked before the shared rules for
+  every name, or None to leave it to them;
+- optionally ``calibrate(model, state, frames_u8, cfg)``: changes the drawn
+  ``state`` in place, given ``model``, the f32 reference holding it on the
+  CPU, and the cell's first frames (N, H, W, 3) uint8 RGB, which the module
+  turns into its model's input itself (a detector: its published test
+  pipeline, exported for its pipeline's ``run_block`` too).  The harness
+  calls it for the detector, then for the pose model, then scales the pose
+  head, and only then writes the checkpoints.
 
 A pipeline module exports:
 
@@ -33,9 +41,12 @@ A pipeline module exports:
   frames that set the head's scale;
 - ``run_block(models, frames_u8, cfg, rig, rounding)``: one host block
   through the reference;
-- ``judge(outputs, n_blocks, refs, rig, cfg, device)``: ``{"numbers":
-  {name: value}, "per_block": {name: (n_blocks,)}}`` over ``NAMES``, of
-  which ``MEANS`` are means over the run (the rest the worst block's);
+- ``judge(outputs, n_blocks, refs, rig, cfg, device, models=)``:
+  ``{"numbers": {name: value}, "per_block": {name: (n_blocks,)}}`` over
+  ``NAMES``, of which ``MEANS`` are means over the run (the rest the worst
+  block's); ``models`` are the exact reference models (f32, TF32 off, built
+  once the program's state is freed), through which a judge can replay
+  what the program made on the way, such as its detector's boxes;
 - ``program_kwargs(cfg, checkpoints)``: further keywords of
   ``cli.estimate.build_estimate_pipeline``, the estimate CLI's own (such
   as ``detector_model`` and ``detector_checkpoint``);

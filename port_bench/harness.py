@@ -55,8 +55,12 @@ TRACE_GAP = 8.0
 FILL_SECONDS = 2.0
 STRETCHES = ("device", "host")
 _BIG = 1e300  # stands for +inf in the JSON line
-# Frames of the first block whose crops set the heatmaps' scale.
+# Frames of the first block whose crops set the heatmaps' scale, and that
+# a family's ``calibrate`` gets (every camera's).
 CALIBRATION_FRAMES = 8
+# The roles whose family's ``calibrate`` runs, in this order: the pose
+# model's crops may come from the detector's boxes.
+CALIBRATION_ORDER = ("detector", "pose")
 # The generator stream (`weights.sub_seed`) of each model's weights; the
 # traffic takes stream 1.
 STREAMS = {"pose": 0, "detector": 2}
@@ -133,10 +137,11 @@ class Cell:
     """A cell's inputs for one seed: its configuration, traffic, limits and
     rig, the seeded weights of each model (state dicts in MMPose's or
     MMDet's format: the pose model's, and a detector's where the
-    configuration names one) and the host blocks; made by the benchmark,
-    handed the same to the program and to the reference.  The models'
-    family modules and the pipeline module (reference block, judge) are
-    those the configuration names (`catalog`)."""
+    configuration names one, each calibrated by its family's ``calibrate``
+    where it has one, on the CPU) and the host blocks; made by the
+    benchmark, handed the same to the program and to the reference.  The
+    models' family modules and the pipeline module (reference block,
+    judge) are those the configuration names (`catalog`)."""
 
     def __init__(self, cat: Catalog, workload: str, seed: int, device):
         wl = cat.workload(workload)
@@ -156,8 +161,18 @@ class Cell:
         self.states = {role: draw_state_dict(self.meta[role], seed, device, STREAMS[role],
                                              getattr(families[role], "weight_kind", None))
                        for role in self.model_cfgs}
+        first = torch.from_numpy(self.host[0][:CALIBRATION_FRAMES])
+        for role in CALIBRATION_ORDER:
+            calibrate = getattr(families.get(role), "calibrate", None)
+            if calibrate is not None:
+                with no_tf32():
+                    model = build_model(self.model_cfgs[role], "cpu", root=self.root)
+                    model.load_state_dict(self.states[role], strict=True)
+                    calibrate(model, self.states[role], first.reshape(-1, *first.shape[2:]),
+                              self.model_cfgs[role])
+                del model
         models = self.reference_models()
-        frames = torch.from_numpy(self.host[0][:CALIBRATION_FRAMES]).to(device)
+        frames = first.to(device)
         with no_tf32():
             self.head_scale = calibrate_head(
                 models["pose"], self.pipe.calibration_crops(models, frames, self.cfg),
@@ -207,9 +222,13 @@ class Cell:
                                         rig, rounding) for b in self.host]
 
     def judge(self, outputs: tuple, n_blocks: int, refs: list) -> dict:
+        """The pipeline's ``judge``, given the exact reference models (built
+        here, where the program's state is freed), so that it can replay
+        what the program made on the way (a detector's boxes) through them."""
+        models = self.reference_models()
         with no_tf32():
             return self.pipe.judge(outputs, n_blocks, refs, self.rig_tensors(), self.cfg,
-                                   self.device)
+                                   self.device, models=models)
 
 
 def run_cell(cat: Catalog, workload: str, seed: int, seconds: float, trace: bool,

@@ -130,10 +130,12 @@ def _block_numbers(k2, hm, k3, ref: dict, rig: dict, cfg: dict, s: float,
 
 @torch.no_grad()
 def judge(outputs: tuple, n_blocks: int, refs: list, rig: dict, cfg: dict,
-          device) -> dict:
+          device, models: dict | None = None) -> dict:
     """``outputs``: the program's stacked (kpts_2d, heatmaps_2d, kpts_3d)
     numpy arrays of ``n_blocks`` blocks, block b made from source block
-    b % len(refs); ``refs``: `reference.pipeline.run_block` of each source.
+    b % len(refs); ``refs``: the pipeline's ``run_block`` of each source;
+    ``models``, the reference models, unused: with full-frame boxes the
+    program makes nothing on the way that ``refs`` do not already hold.
     Returns {"numbers": {name: worst}, "per_block": {name: (n_blocks,)
     numpy}}."""
     k2, hm, k3 = outputs

@@ -43,3 +43,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return "cuda"
+
+
+@pytest.fixture
+def one_thread():
+    """One CPU thread: the convolutions' sums in one order, and a CPU run
+    that keeps its pace beside other test processes (threads oversubscribed
+    across processes stall each other's blocks past a few-second window)."""
+    import torch
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)

@@ -136,7 +136,7 @@ def test_run_without_a_card_exits_nonzero_and_prints_no_result():
 
 
 @pytest.mark.parametrize("workload", ["tiny_hrnet_cell", "tiny_swin_cell"])
-def test_cpu_run_is_correct(tiny_catalog, workload):
+def test_cpu_run_is_correct(tiny_catalog, workload, one_thread):
     result = run_cell(tiny_catalog, workload, 2 ** 31 + 7, 4.0, trace=False, device="cpu",
                       log=lambda msg: None)
     assert result["correct"] and result["failed"] == 0
@@ -171,7 +171,7 @@ class _Broken:
 
 
 @pytest.mark.parametrize("fault", ["answer_altered", "half_left_out"])
-def test_broken_timed_path_is_not_correct(tiny_catalog, fault):
+def test_broken_timed_path_is_not_correct(tiny_catalog, fault, one_thread):
     result = run_cell(tiny_catalog, "tiny_hrnet_cell", 11, 3.0, trace=False, device="cpu",
                       tamper=lambda p: _Broken(p, fault), log=lambda msg: None)
     assert result["correct"] is False

@@ -72,17 +72,6 @@ def digest(values: dict) -> str:
     return h.hexdigest()
 
 
-@pytest.fixture
-def one_thread():
-    """One CPU thread: the convolutions' sums in one order."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
-
-
 @pytest.mark.parametrize("config", sorted(DRAWN))
 @pytest.mark.parametrize("seed", [5, 2 ** 33 + 1])
 def test_drawn_state_dict_is_the_parents(tiny_catalog, config, seed):

@@ -1,27 +1,32 @@
 """A configuration of a new model family, with a person detector ahead of
 the pose model and a judge of its own, added as new files and entries
 alone: in a copy of the test-sized benchmark, a family module that needs
-``weight_kind``, a detector family, a pipeline module, a traffic mix, a
-limits file and a ``workloads`` entry, and nothing else; then ``run_cell``
-on the CPU through ``build_estimate_pipeline`` to a verdict.
+``weight_kind``, a detector family that overrides a shared rule and
+calibrates what it drew, a pipeline module whose judge replays through the
+reference models it is given, a traffic mix, a limits file and a
+``workloads`` entry, and nothing else; then ``run_cell`` on the CPU
+through ``build_estimate_pipeline`` to a verdict.
 
 The toy proves the wiring, not a model: its pose family is the HRNet
 reference with the normalization buffers a real MMPose checkpoint carries
 (which the program's loader drops), its detector family takes the port's
-own MMDet-named RTMDet mirror for its names and shapes (``share_conv``
-binds the head's convs across levels), and its judge counts the frames
-that came back."""
+own MMDet-named RTMDet mirror for its names and shapes (SiLU ConvModules
+with BatchNorm; ``share_conv`` binds the head's convs across levels), and
+its judge counts the frames that came back and replays the detector."""
 
+import hashlib
 import json
 import os
 import shutil
+import subprocess
+import sys
 import tempfile
 
 import pytest
 import torch
 
 from port_bench.catalog import Catalog
-from port_bench.harness import Cell, run_cell
+from port_bench.harness import CALIBRATION_FRAMES, Cell, run_cell
 from port_bench.reference import build_model
 from port_bench.weights import draw_state_dict
 
@@ -52,15 +57,48 @@ def weight_kind(key, module, param):
 '''
 
 TOY_DETECTOR = '''
+import torch
+
 from multi_camera_3d_pose_estimation_tpu_torch.models.mirrors.rtmdet import MMDetRTMDet
 from multi_camera_3d_pose_estimation_tpu_torch.models.registry import DETECTOR_REGISTRY
 
 HEAD_KEY = None
+REG_BIAS = (2.5, 3.5)
 
 
 class MODEL(MMDetRTMDet):
     def __init__(self, cfg):
         super().__init__(DETECTOR_REGISTRY[cfg["registry_name"]]["cfg"])
+
+
+def weight_kind(key, module, param):
+    if key.startswith("bbox_head.rtm_reg.") and key.endswith(".bias"):
+        return ("uniform", REG_BIAS)  # a conv's bias, which a shared rule covers
+    return None
+
+
+def network_input(frames_u8):
+    return frames_u8.permute(0, 3, 1, 2).float() / 255.0
+
+
+@torch.no_grad()
+def calibrate(model, state, frames_u8, cfg):
+    norms = {m: n for n, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)}
+
+    def set_statistics(mod, args):
+        ms = args[0].double().square().mean()
+        mod.running_var.copy_(state[norms[mod] + ".running_var"] * ms)
+        mod.running_mean.copy_(state[norms[mod] + ".running_mean"] * ms.sqrt())
+
+    hooks = [m.register_forward_pre_hook(set_statistics) for m in norms]
+    try:
+        model(network_input(frames_u8[:2]))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    for m, n in norms.items():
+        state[n + ".running_var"].copy_(m.running_var)
+        state[n + ".running_mean"].copy_(m.running_mean)
 '''
 
 TOY_PIPELINE = '''
@@ -70,7 +108,7 @@ import torch
 from port_bench.bounds import model_flops_per_crop
 from port_bench.reference.topdown import crop, crop_geometry
 
-NAMES = ("frames_gap",)
+NAMES = ("frames_gap", "replay_gap")
 MEANS = ()
 
 
@@ -87,13 +125,17 @@ def run_block(models, frames_u8, cfg, rig, rounding):
     T, C, H, W, _ = frames_u8.shape
     x = frames_u8.reshape(T * C, H, W, 3).permute(0, 3, 1, 2).float() / 255.0
     _, scores = models["detector"](x)
-    return {"frames": T, "top1_score": scores.amax(-1)}
+    return {"frames": T, "x": x, "top1_score": scores.amax(-1)}
 
 
-def judge(outputs, n_blocks, refs, rig, cfg, device):
+@torch.no_grad()
+def judge(outputs, n_blocks, refs, rig, cfg, device, models):
     gap = float(abs(outputs[0].shape[0] - n_blocks * refs[0]["frames"]))
-    return {"numbers": {"frames_gap": gap},
-            "per_block": {"frames_gap": np.full(n_blocks, gap)}}
+    replay = max(float((models["detector"](r["x"])[1].amax(-1) - r["top1_score"]).abs().max())
+                 for r in refs)
+    numbers = {"frames_gap": gap, "replay_gap": replay}
+    return {"numbers": numbers,
+            "per_block": {n: np.full(n_blocks, v) for n, v in numbers.items()}}
 
 
 def program_kwargs(cfg, checkpoints):
@@ -133,7 +175,8 @@ def _add_toy(root: str) -> None:
         traffic = json.load(f)
     traffic.update(height=64, width=64)  # strides 8-32 of the detector's levels
     write("traffic/tiny_square.json", json.dumps(traffic))
-    write("limits/toy_detect_cell.json", json.dumps({"frames_gap": {"limit": 0.0}}))
+    write("limits/toy_detect_cell.json", json.dumps({"frames_gap": {"limit": 0.0},
+                                                     "replay_gap": {"limit": 0.0}}))
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         spec = json.load(f)
     spec["configs"].append({"name": "toy_detect", "source": "port_bench/tests",
@@ -184,14 +227,59 @@ def test_a_family_that_needs_weight_kind_is_refused_without_it(toy_catalog):
     assert ((state["data_preprocessor.std"] >= 0.5) & (state["data_preprocessor.std"] < 1.5)).all()
 
 
-def test_cell_draws_the_detector_from_its_own_stream(toy_catalog):
+def _calibrated_detector(cat: Catalog, frames_u8: torch.Tensor) -> dict:
+    """The toy detector's state as the harness makes it: stream 2 of the
+    toy family's distributions, then its ``calibrate`` on ``frames_u8``."""
+    cfg = cat.config("toy_detect")["detector"]
+    family = cat.family("toy_rtmdet")
+    state = draw_state_dict(build_model(cfg, "meta", root=cat.root), SEED, "cpu", 2,
+                            family.weight_kind)
+    model = build_model(cfg, "cpu", root=cat.root)
+    model.load_state_dict(state, strict=True)
+    family.calibrate(model, state, frames_u8, cfg)
+    return state
+
+
+def _head_norm_rms(cat: Catalog, state: dict, frames_u8: torch.Tensor) -> list:
+    """The RMS of the output of each BatchNorm of the toy detector's head."""
+    cfg = cat.config("toy_detect")["detector"]
+    model = build_model(cfg, "cpu", root=cat.root)
+    model.load_state_dict(state, strict=True)
+    rms = []
+    hooks = [m.register_forward_hook(lambda m, a, out: rms.append(float(out.square().mean().sqrt())))
+             for n, m in model.named_modules() if n.startswith("bbox_head.") and n.endswith(".bn")]
+    with torch.no_grad():
+        model(cat.family("toy_rtmdet").network_input(frames_u8[:2]))
+    for hook in hooks:
+        hook.remove()
+    return rms
+
+
+def _first_frames(cell: Cell) -> torch.Tensor:
+    """The frames a family's ``calibrate`` gets: every camera of the first
+    block's first `CALIBRATION_FRAMES` time steps."""
+    first = torch.from_numpy(cell.host[0][:CALIBRATION_FRAMES])
+    return first.reshape(-1, *first.shape[2:])
+
+
+def test_cell_draws_the_detector_from_its_own_stream_and_calibrates_it(toy_catalog):
     cell = Cell(toy_catalog, "toy_detect_cell", SEED, "cpu")
     assert set(cell.states) == {"pose", "detector"}
     det_cfg = cell.cfg["detector"]
     meta = build_model(det_cfg, "meta", root=toy_catalog.root)
-    want = draw_state_dict(meta, SEED, "cpu", 2)
+    family = toy_catalog.family("toy_rtmdet")
+    drawn = draw_state_dict(meta, SEED, "cpu", 2, family.weight_kind)
+    want = _calibrated_detector(toy_catalog, _first_frames(cell))
+    assert set(cell.states["detector"]) == set(want)
     assert all(torch.equal(cell.states["detector"][k], want[k]) for k in want)
-    other = draw_state_dict(meta, SEED, "cpu", 0)
+    # Calibrated: every BatchNorm's statistics and nothing else moved.
+    moved = {k for k in want if not torch.equal(want[k], drawn[k])}
+    assert moved == {k for k in want if k.endswith(("running_mean", "running_var"))}
+    # The family's weight_kind comes first, also for a name that a shared
+    # rule covers (a bias, N(0, 0.02²) by the shared rules).
+    bias = want["bbox_head.rtm_reg.0.bias"]
+    assert ((bias >= 2.5) & (bias < 3.5)).all()
+    other = draw_state_dict(meta, SEED, "cpu", 0, family.weight_kind)
     assert not torch.equal(want["bbox_head.rtm_cls.0.weight"], other["bbox_head.rtm_cls.0.weight"])
     # share_conv: the head's level convs are one tensor, drawn once.
     assert torch.equal(want["bbox_head.cls_convs.1.0.conv.weight"],
@@ -210,13 +298,54 @@ def test_cell_draws_the_detector_from_its_own_stream(toy_catalog):
         alone.pipe.flops_per_crop(alone.meta, alone.cfg, alone.traffic)
 
 
+def test_calibrate_holds_the_toy_detectors_activations_at_unit_scale(toy_catalog):
+    cell = Cell(toy_catalog, "toy_detect_cell", SEED, "cpu")
+    frames = _first_frames(cell)
+    meta = build_model(cell.cfg["detector"], "meta", root=toy_catalog.root)
+    drawn = draw_state_dict(meta, SEED, "cpu", 2, toy_catalog.family("toy_rtmdet").weight_kind)
+    # Drawn alone, each SiLU layer shrinks the scale: the head's BatchNorms
+    # put out 0.065-0.090 RMS (the shifts' N(0, 0.05²) carry it); calibrated,
+    # 0.98-1.06.
+    assert max(_head_norm_rms(toy_catalog, drawn, frames)) < 0.1
+    assert all(0.5 <= v <= 2.0 for v in _head_norm_rms(toy_catalog, cell.states["detector"],
+                                                        frames))
+
+
+def test_two_processes_draw_and_calibrate_the_same_bits(toy_catalog):
+    code = f"""
+import hashlib, sys
+import torch
+sys.path.insert(0, {ROOT!r})
+torch.set_num_threads(1)
+from port_bench.catalog import Catalog
+from port_bench.harness import Cell
+cell = Cell(Catalog({toy_catalog.root!r}), "toy_detect_cell", {SEED}, "cpu")
+h = hashlib.sha256()
+for role in sorted(cell.states):
+    for k in sorted(cell.states[role]):
+        h.update(f"{{role}}.{{k}}".encode())
+        h.update(cell.states[role][k].contiguous().numpy().tobytes())
+print(h.hexdigest())
+"""
+    digests = [subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              cwd=toy_catalog.root, check=True, timeout=300
+                              ).stdout.split()[-1] for _ in range(2)]
+    cell = Cell(toy_catalog, "toy_detect_cell", SEED, "cpu")
+    h = hashlib.sha256()
+    for role in sorted(cell.states):
+        for k in sorted(cell.states[role]):
+            h.update(f"{role}.{k}".encode())
+            h.update(cell.states[role][k].contiguous().numpy().tobytes())
+    assert digests == [h.hexdigest()] * 2
+
+
 def test_run_cell_with_a_detector_reaches_a_verdict_through_new_files_alone(toy_catalog,
                                                                             monkeypatch):
     from multi_camera_3d_pose_estimation_tpu_torch.cli import estimate
     from multi_camera_3d_pose_estimation_tpu_torch.models.registry import build_detector
 
     root = toy_catalog.root
-    built, saved_to = [], []
+    built, saved = [], {}
 
     def spy_detector(name, checkpoint=None, **kw):
         detector = build_detector(name, checkpoint=checkpoint, **kw)
@@ -226,7 +355,8 @@ def test_run_cell_with_a_detector_reaches_a_verdict_through_new_files_alone(toy_
     real_save = torch.save
 
     def spy_save(obj, path, *args, **kw):
-        saved_to.append(os.path.abspath(path))
+        saved[os.path.abspath(path)] = {
+            "state_dict": {k: v.clone() for k, v in obj["state_dict"].items()}}
         return real_save(obj, path, *args, **kw)
 
     monkeypatch.setattr(estimate, "build_detector", spy_detector)
@@ -236,15 +366,18 @@ def test_run_cell_with_a_detector_reaches_a_verdict_through_new_files_alone(toy_
     result = run_cell(toy_catalog, "toy_detect_cell", SEED, 3.0, trace=False, device="cpu",
                       log=lambda msg: None)
     assert result["correct"] is True and result["failed"] == 0
-    assert list(result["checks"]) == ["frames_gap"]
-    assert result["checks"]["frames_gap"] == {"value": 0.0, "limit": 0.0}
+    assert result["checks"] == {"frames_gap": {"value": 0.0, "limit": 0.0},
+                                "replay_gap": {"value": 0.0, "limit": 0.0}}
 
-    # The program ran RTMDet from the detector's own checkpoint, top-1.
+    # The program ran RTMDet from the detector's own checkpoint, top-1: the
+    # calibrated state, as the harness wrote it.
     (name, ckpt, kw, detector), = built
     assert name == "test_rtmdet_micro" and kw["select"] == "top1" and kw["bbox_thr"] == 0.3
     assert os.path.basename(ckpt) == "detector.pth" and detector.model is not None
-    state = draw_state_dict(build_model(toy_catalog.config("toy_detect")["detector"], "meta",
-                                        root=root), SEED, "cpu", 2)
+    state = _calibrated_detector(toy_catalog, _first_frames(
+        Cell(toy_catalog, "toy_detect_cell", SEED, "cpu")))
+    written = saved[os.path.abspath(ckpt)]["state_dict"]
+    assert set(written) == set(state) and all(torch.equal(written[k], state[k]) for k in state)
     path = os.path.join(root, "tmp", "want.pth")
     real_save({"state_dict": state}, path)
     want = build_detector(name, checkpoint=path, **kw).model.state_dict()
@@ -252,7 +385,7 @@ def test_run_cell_with_a_detector_reaches_a_verdict_through_new_files_alone(toy_
     assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
 
     # Nothing was written outside the temporary root, and the project is gone.
-    assert saved_to and all(p.startswith(os.path.abspath(root) + os.sep) for p in saved_to)
+    assert saved and all(p.startswith(os.path.abspath(root) + os.sep) for p in saved)
     assert os.listdir(os.path.join(root, "tmp")) == ["want.pth"]
     assert (_files(os.path.join(ROOT, "port_bench")), os.stat(
         os.path.join(ROOT, "BENCHMARK.json")).st_mtime_ns) == before

@@ -8,7 +8,10 @@ one uniform draw for every tensor at once), in float32: the type an MMPose
 checkpoint holds.  A tensor that two names share (a module bound twice,
 as MMDet's shared head convs are) is drawn once, under its first name in
 sorted order, and the other names hold a copy.  The distributions (each a
-scale of those two draws):
+scale of those two draws): what the family module's ``weight_kind(key,
+module, param)`` gives, ``("normal", std)``, ``("uniform", (a, b))`` or
+``("zero", None)``, asked first for every name; where it gives None (or
+the family has none), the shared rules:
 
 - conv, linear and transposed-conv kernels: N(0, 1 / fan_in), the fan-in
   of a transposed conv being the taps that reach one output,
@@ -21,19 +24,25 @@ scale of those two draws):
 - relative-position bias tables N(0, 1), the scale of trained tables
   (N(0, 0.02²) would move the attention by about 1e-3, under any check);
 - ``num_batches_tracked``: 0;
-- any other name: what the family module's ``weight_kind(key, module,
-  param)`` gives, ``("normal", std)``, ``("uniform", (a, b))`` or
-  ``("zero", None)``; a name that it leaves out (None) raises.
+- any other name raises.
 
-Then `calibrate_head` scales the final 1x1 conv (kernel and bias) so that
-the reference's heatmaps of a few of the cell's own crops peak at
-``head_peak`` at the median: HRNet's activations grow through its residual
-sums and fusions by a factor that swings tenfold from seed to seed, and so
-would the heatmaps' scale against the confidence gate.  (Setting the
-BatchNorm statistics from a batch instead holds the scale too, but its
-channels of large mean over spread amplify the bf16 rounding of the conv
-outputs before them until one bf16 path differs from another by half a
-peak; random statistics near identity do not.)
+Then the harness (`harness.Cell`) calibrates what was drawn, before any
+checkpoint is written: a family module's ``calibrate(model, state,
+frames_u8, cfg)``, where it has one (the detector's first, since the pose
+model's crops may come from its boxes), changes ``state`` in place from a
+forward pass of the f32 reference on the CPU over the cell's first frames
+(a detector's BatchNorm statistics: with them near identity every SiLU
+layer shrinks the scale until every candidate scores about sigmoid(bias));
+on the CPU, so that the same seed gives the same bits in every process.
+Then `calibrate_head` scales the pose model's final 1x1 conv (kernel and
+bias) so that the reference's heatmaps of a few of the cell's own crops
+peak at ``head_peak`` at the median: HRNet's activations grow through its
+residual sums and fusions by a factor that swings tenfold from seed to
+seed, and so would the heatmaps' scale against the confidence gate.
+(Setting the BatchNorm statistics from a batch instead holds the scale
+too, but its channels of large mean over spread amplify the bf16 rounding
+of the conv outputs before them until one bf16 path differs from another
+by half a peak; random statistics near identity do not.)
 """
 
 from __future__ import annotations
@@ -53,44 +62,50 @@ def sub_seed(seed: int, stream: int) -> int:
     return (int(seed) * 1_000_003 + 7919 * (stream + 1)) & _MASK63
 
 
+def _shared_kind(mod: nn.Module, pname: str, p: torch.Tensor):
+    """The shared rules' (kind, scale) of parameter or buffer ``pname`` of
+    ``mod``, or None where no rule covers it."""
+    norm = isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm))
+    if pname == "num_batches_tracked":
+        return ("zero", None)
+    if pname == "running_var":
+        return ("uniform", (0.8, 1.25))
+    if pname == "running_mean":
+        return ("normal", 0.05)
+    if norm and pname == "weight":
+        return ("uniform", (0.8, 1.2))
+    if norm and pname == "bias":
+        return ("normal", 0.05)
+    if pname == "relative_position_bias_table":
+        return ("normal", 1.0)
+    if pname == "bias":
+        return ("normal", 0.02)
+    if pname == "weight" and p.dim() >= 2:
+        if isinstance(mod, nn.ConvTranspose2d):
+            fan_in = p.shape[0] * (p.shape[2] // mod.stride[0]) * (p.shape[3] // mod.stride[1])
+        else:
+            fan_in = p[0].numel()
+        return ("normal", 1.0 / math.sqrt(fan_in))
+    return None
+
+
 def _kinds(model: nn.Module, weight_kind=None) -> dict:
     """{state_dict key: (kind, scale)}: kind "normal" or "uniform" (a, b),
-    "zero"; ``weight_kind(key, module, param)`` for the names that the
-    rules here do not cover."""
+    "zero"; ``weight_kind(key, module, param)`` first, the shared rules
+    where it gives None."""
     kinds = {}
     for mname, mod in model.named_modules(remove_duplicate=False):
         prefix = f"{mname}." if mname else ""
-        norm = isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm))
         for pname, p in list(mod.named_parameters(recurse=False)) + list(
                 mod.named_buffers(recurse=False)):
             key = prefix + pname
-            if pname == "num_batches_tracked":
-                kinds[key] = ("zero", None)
-            elif pname == "running_var":
-                kinds[key] = ("uniform", (0.8, 1.25))
-            elif pname == "running_mean":
-                kinds[key] = ("normal", 0.05)
-            elif norm and pname == "weight":
-                kinds[key] = ("uniform", (0.8, 1.2))
-            elif norm and pname == "bias":
-                kinds[key] = ("normal", 0.05)
-            elif pname == "relative_position_bias_table":
-                kinds[key] = ("normal", 1.0)
-            elif pname == "bias":
-                kinds[key] = ("normal", 0.02)
-            elif pname == "weight" and p.dim() >= 2:
-                if isinstance(mod, nn.ConvTranspose2d):
-                    fan_in = p.shape[0] * (p.shape[2] // mod.stride[0]) * (
-                        p.shape[3] // mod.stride[1])
-                else:
-                    fan_in = p[0].numel()
-                kinds[key] = ("normal", 1.0 / math.sqrt(fan_in))
-            else:
-                kind = weight_kind(key, mod, p) if weight_kind is not None else None
-                if kind is None:
-                    raise ValueError(f"no distribution for {key} ({type(mod).__name__}): add a "
-                                     f"rule for it in the family module's weight_kind")
-                kinds[key] = kind
+            kind = weight_kind(key, mod, p) if weight_kind is not None else None
+            if kind is None:
+                kind = _shared_kind(mod, pname, p)
+            if kind is None:
+                raise ValueError(f"no distribution for {key} ({type(mod).__name__}): add a "
+                                 f"rule for it in the family module's weight_kind")
+            kinds[key] = kind
     missing = set(model.state_dict()) - set(kinds)
     if missing:
         raise ValueError(f"no distribution for {sorted(missing)[:5]}: add a rule for them in "
