@@ -11,8 +11,11 @@ Phases (each synchronises the card; any failure exits non-zero):
 3. the full-width main path: HRNet-W32 at 192x256 input, 2 cameras, blocks
    of T=256 frames of 256x256 (512 crops), random weights from a seed.  One
    warm-up block, then the launch counts are set to 0, a few blocks run and
-   the counts are read (1 crop, 4 Bottleneck and 1 decode launch per block,
-   no other kernel); frames/s and the output checks are printed;
+   the counts are read (1 crop, 4 Bottleneck, 279 ConvBN epilogue and 1
+   decode launch per block, no other kernel; here and on every inference
+   path below whose counts are read, no eval-mode bf16 BatchNorm takes the
+   plain form, ``bn_epilogue.plain`` 0); frames/s and the output checks
+   are printed;
 4. each kernel against its plain PyTorch version on the card, on the inputs
    the main path gave it (the stem output of a block's crops for the
    Bottleneck chain, the block's heatmaps for the decode), with kernel,
@@ -34,8 +37,8 @@ Phases (each synchronises the card; any failure exits non-zero):
    swin_gemm and window-attention kernels, random weights from a seed.  One
    warm-up block, then the counts are set to 0, a few blocks run and the
    counts are read (1 crop launch, 96 swin_gemm product launches, 48 of
-   them after a LayerNorm row-kernel launch, 24 window-attention and 1
-   decode launch per block); frames/s and the output checks are printed;
+   them after a LayerNorm row-kernel launch, 24 window-attention, 3 ConvBN
+   epilogue (the head) and 1 decode launch per block); frames/s and the output checks are printed;
 7. one SwinBlock of each stage against its plain version, on the inputs
    the main path gave it (captured by a forward pre-hook); each of its four
    token products (qkv, proj, fc1, fc2) on that block's own operands
@@ -53,8 +56,8 @@ Phases (each synchronises the card; any failure exits non-zero):
    shifted block's attention reading its windows through a row table).  A
    warm-up block, then the counts are set to 0, a few blocks run and the
    counts are read (1 crop, 96 swin_gemm and 48 LayerNorm row-kernel
-   launches, 24 row-mode attention, 0 chained-layout attention and 1 decode
-   launch per block); spies show that every stage
+   launches, 24 row-mode attention, 0 chained-layout attention, 3 ConvBN
+   epilogue and 1 decode launch per block); spies show that every stage
    ran `fused_swin_stage_fixed` and the chained `fused_swin_block` never;
 10. the first shifted fixed-order block of each stage (captured on the main
    path) against its plain version and against the chained
@@ -71,8 +74,8 @@ Phases (each synchronises the card; any failure exits non-zero):
    cameras, blocks of T=128 frames of 256x256 (512 crops, each through the
    model twice), robust n-view triangulation.  A warm-up block, then the
    counts are set to 0, a few blocks run and the counts are read (1 crop
-   launch, 8 Bottleneck launches, two stage-1 passes, and 1 decode launch
-   per block); frames/s and the output checks are printed;
+   launch, 8 Bottleneck and 2 x 279 ConvBN epilogue launches, two forwards,
+   and 1 decode launch per block); frames/s and the output checks are printed;
 13. small pipelines on the card against the plain CPU path: n-view with
    flip-TTA on the fused decode (4 cameras), end to end and on the card's
    own heatmaps replayed into the CPU path, and flip-TTA with the DARK
@@ -86,16 +89,17 @@ Phases (each synchronises the card; any failure exits non-zero):
    (``rtmdet_m``, top-1 selection) on the headline block (T=256 x C=2 of
    256x256, 512 crops), random weights from a seed.  A warm-up block, then
    the counts are set to 0, a few blocks run and the counts are read (1
-   crop, 4 Bottleneck and 1 decode launch per block); frames/s, the full-frame
+   crop, 4 Bottleneck, 279 + 112 ConvBN epilogue (the pose model's and the
+   detector's) and 1 decode launch per block); frames/s, the full-frame
    frames/s of the same pipeline (boxes given) and the detector's cost
    ``1 - det/full``, the share of frames whose box was kept (each kept box
    finite, inside the frame, of positive size) and the output checks;
 16. one timed block each behind ``centernet_w32`` (top-1) and ``yolox_s``
    (consistent selection: top-4 candidates, a 9-frame window): launch
-   counts, frames/s, kept boxes and the output checks;
+   counts (279 + 9 and 279 + 74 ConvBN epilogues), frames/s, kept boxes and the output checks;
 17. the SimCC path at full width: RTMPose-t (``coco_rtmpose-t``) at 192x256
-   on T=256 x C=2, a few timed blocks: 1 crop launch per block and no
-   other kernel,
+   on T=256 x C=2, a few timed blocks: 1 crop and 33 ConvBN epilogue
+   launches per block and no other kernel,
    frames/s, the share of joints passing the 0.3 gate, the output checks;
 18. small pipelines on the card against the plain CPU path: the detector
    path with top-1 and with consistent selection, the CPU path also on the
@@ -111,7 +115,8 @@ Phases (each synchronises the card; any failure exits non-zero):
    blocks made once, streamed through `io.stage_blocks` (pinned ring, copy
    stream) and `cli.run_pipeline_on_blocks` (inflight 2) in blocks of 256
    and of 64: the counts set to 0 just before each streamed run and read
-   just after (4 Bottleneck and 1 decode launch per block), frames/s beside
+   just after (4 Bottleneck, 279 ConvBN epilogue and 1 decode launch per
+   block), frames/s beside
    the same pipeline in memory and phase 3, the H2D copy time (copy-stream
    events), the steady state and the one-time fill of both from runs of 1024
    and 4096 frames, and the card's busy share over a profiler window; the streamed
@@ -127,12 +132,14 @@ Phases (each synchronises the card; any failure exits non-zero):
    and 128 on one fixed batch each, 3 warm-up and 20 timed steps (steps/s
    and images/s on the host clock, ended by fetching every step's loss),
    the device time of 2 profiled steps over the timed step (the busy
-   share), the peak memory, and no kernel launched while training; the
+   share), the peak memory, and no kernel launched while training (train
+   mode's BatchNorm is the plain form); the
    loss falling over batch 32's 30 steps; test_tiny card against CPU at
    batch 8 (TF32 off; three losses each in float32 and float64); the
    trained weights saved with `save_checkpoint_npz`, built back with
    ``build_estimator(checkpoint=)`` and both kernels on, one headline block
-   (4 Bottleneck and 1 decode launch) equal bit for bit to the weights in
+   (4 Bottleneck, 279 ConvBN epilogue and 1 decode launch) equal bit for
+   bit to the weights in
    memory, both kernels against their plain versions on that block's
    inputs; then Swin-B (plain attention) and RTMPose-t, 5 timed steps each
    at batch 32;
@@ -143,11 +150,11 @@ Phases (each synchronises the card; any failure exits non-zero):
    package's ``.npz`` written); HRNet-W32 built from the ``.pth`` with the
    JAX keyword ``use_pallas_stage1`` as `cli.estimate` builds it, timed on
    phase 3's blocks in memory, two blocks streamed through
-   `cli.run_pipeline_on_blocks` (4 Bottleneck and 1 decode launch per
-   block) bit for bit equal to the ``.npz`` route, and the stage-1 chain
+   `cli.run_pipeline_on_blocks` (4 Bottleneck, 279 ConvBN epilogue and 1
+   decode launch per block) bit for bit equal to the ``.npz`` route, and the stage-1 chain
    against its plain version on the checkpoint's BatchNorm statistics;
    Swin-B from the ``.pth``, one block of T=128 x C=2 (96 swin_gemm, 24
-   attention and 1 decode launch) bit for bit equal to the ``.npz`` route,
+   attention, 3 ConvBN epilogue and 1 decode launch) bit for bit equal to the ``.npz`` route,
    each stage's window attention against its plain version on the
    checkpoint's bias table; `cli.estimate_pose_from_video` from the
    ``.pth`` on 128 frames of phase 19's rig (raw frame stacks in place of
@@ -156,14 +163,15 @@ Phases (each synchronises the card; any failure exits non-zero):
 22. the mesh paths (`parallel`) as a one-rank NCCL group: first the CPU
    references in a one-rank gloo group (then destroyed), then
    `init_distributed` on a free local port (NCCL) and the headline block
-   through ``ShardedPosePipeline(mesh=make_mesh(1))`` (4 Bottleneck and 1
-   decode launch per block, outputs equal to phase 3's ``mesh=None`` run bit
+   through ``ShardedPosePipeline(mesh=make_mesh(1))`` (4 Bottleneck, 279
+   ConvBN epilogue and 1 decode launch per block, outputs equal to phase 3's ``mesh=None`` run bit
    for bit, frames/s); phase 6's Swin-B block the same way (96 swin_gemm,
-   24 attention and 1 decode launch, bit for bit phase 6's pipeline);
+   24 attention, 3 ConvBN epilogue and 1 decode launch, bit for bit phase
+   6's pipeline);
    BASELINE config 5 (`bench.py::bench_multiclip`: 8
    clips x T=32 x 4 cameras of 256x256, 1024 crops per block) through
    `run_clips_batched` on ``make_clip_mesh(1, 1)``, a warm-up and 3 timed
-   blocks (4 + 1 launches each), split equal to unsplit and to ``mesh=None``,
+   blocks (4 + 279 + 1 launches each), split equal to unsplit and to ``mesh=None``,
    4-camera frames/s; phase 20's HRNet-W32 bf16 step at batch 32 through
    ``make_train_step(mesh=make_mesh(1))``, 3 steps against ``mesh=None`` on
    the same batch and weights (bit for bit), the collectives per step and the
@@ -182,10 +190,13 @@ Phases (each synchronises the card; any failure exits non-zero):
    result against the port's own CPU run and against the truth; the rig
    written as `cli.configure.configure_cameras` writes it (origin camera at
    R = I, T = 0) and read back through ``io``; phase 3's headline block on
-   the calibrated rig (4 Bottleneck and 1 decode launch per block, kpts_2d
+   the calibrated rig (4 Bottleneck, 279 ConvBN epilogue and 1 decode
+   launch per block, kpts_2d
    bit for bit phase 3's, kpts_3d against the CPU-calibrated rig, frames/s);
 24. the last modules: (a) `utils.trace` around 2 headline blocks
-   (the trace it wrote parsed: 4 stage-1 and 1 decode kernel per block by
+   between a lead-in and a lead-out block (the trace it wrote parsed: the
+   kernels launched inside the counted blocks' ``mc3d.pipeline.run``
+   spans, 4 stage-1, 279 ConvBN epilogue and 1 decode kernel per block by
    name, as the wrappers count them; outputs bit for bit phase 3's;
    frames/s under the profiler); (b) `utils.StepTimer` over the staged,
    compute and drain stages of 4 blocks streamed through `io.stage_blocks`;
@@ -205,13 +216,14 @@ Phases (each synchronises the card; any failure exits non-zero):
 25. the registry's other two heatmap models at full width, random weights
    from a seed: HRNet-W48 at 288x384 input on the headline blocks (T=256 x
    C=2 of 256x256, 512 crops; a warm-up block, then 3 counted and timed
-   blocks: 4 Bottleneck and 1 decode launch per block), its stage-1 chain
+   blocks: 4 Bottleneck, 279 ConvBN epilogue and 1 decode launch per
+   block), its stage-1 chain
    (4 bf16 steps), block 0 and an identity block at 96x72 (each with its
    bound) and its decode on the block's own 96x72 maps against their plain
    versions, as in phase 4, and a small W48-width pipeline card against
    CPU; then Swin-L (T=128 x C=2) chained and with ``MC3D_SWIN_FIXED=1``
-   (96 swin_gemm, 48 LayerNorm row-kernel, 24 attention and 1 decode launch
-   per block), each stage's block, its four products and its attention
+   (96 swin_gemm, 48 LayerNorm row-kernel, 24 attention, 3 ConvBN epilogue
+   and 1 decode launch per block), each stage's block, its four products and its attention
    (and, fixed, each whole stage) against their plain versions, as in
    phases 7 and 10; frames/s and ``torch.cuda.max_memory_allocated`` of
    each path and every kernel's time against its bound, each line beside
@@ -225,10 +237,11 @@ Phases (each synchronises the card; any failure exits non-zero):
    (f32, flip-TTA, DARK, the stage-1 and decode kernels off), (b) bf16,
    flip-TTA, the default decode, those kernels off, (c) as (b) with the
    stage-1 and decode kernels, (p) as (c) with every kernel wrapper (the
-   crop's included) computing its plain version (counts set to 0 just
-   before each deploy and read just after, per flip-TTA pair: 1 crop
-   launch in (a), (b) and (c), as on every card path, 8 Bottleneck and 1
-   decode launch in (c), none in (p)); MPJPE raw, median and refined and
+   crop's and the ConvBN epilogue's included) computing its plain version
+   (counts set to 0 just before each deploy and read just after, per
+   flip-TTA pair: 1 crop launch in (a), (b) and (c), as on every card path,
+   2 x 292 ConvBN epilogue launches in (b), 8 Bottleneck, 2 x 279 epilogue
+   and 1 decode launch in (c), none in (p); the f32 CenterNet none); MPJPE raw, median and refined and
    the 2D error of each, the same
    three at random init; (c)'s mean errors within 5% of (b)'s (joint by
    joint printed), each stage-1 block and the decode against their plain
@@ -240,10 +253,19 @@ Phases (each synchronises the card; any failure exits non-zero):
    and read back through cv2, the estimate and refine commands; raw MPJPE
    at most twice the JAX demo's run, refined at most 5% above raw), cv2's
    Video I/O build line printed;
-27. one JSON line with every kernel (the phase-25 rows named ``*_w48`` and
-   ``*_swin_l``; the others with their launches on phases 15-17 and 19-26),
-   the script's wall time, the card's line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+27. the ConvBN epilogue kernel (`ops.bn_epilogue`) on a HRNet-W32 block's
+   shapes: one forward of 512 random 256x192 crops (random weights, BatchNorm
+   statistics far from identity, the stage-1 kernel) with every epilogue
+   call recorded (279 launches, no plain call), each call's output bit for
+   bit its plain form's (up to the sign of a zero from the ReLU), the
+   heatmaps equal to the same forward forced plain; the 279 calls replayed,
+   kernel and plain form, timed beside their bytes bound, per distinct
+   shape too, the host's time per launch, and the forward both ways;
+28. one JSON line with every kernel (the phase-25 rows named ``*_w48`` and
+   ``*_swin_l``; the others with their launches on phases 15-17 and 19-26;
+   phase 27's row last, its ``launches`` phase 3's, with phase 6's, 9's
+   and 12's beside), the script's wall time, the card's line, and the
+   final ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the port
 package beside it, it prints no result and exits 1.
@@ -465,11 +487,13 @@ NVIEW_T, NVIEW_C = 128, 4  # the n-view + flip-TTA path: 512 crops, two passes e
 def run_nview_flip_main_path(dev, gen) -> dict:
     """HRNet-W32 at full width through `build_pipeline(triangulation="nview",
     flip_test=True)` on 4 cameras: a warm-up block, then N_BLOCKS counted and
-    timed blocks (one crop launch and two stage-1 passes per block: 8
-    Bottleneck launches, and 1 decode launch on the averaged maps)."""
+    timed blocks (one crop launch and two forwards per block: 8 Bottleneck
+    and 2 x 279 ConvBN epilogue launches, and 1 decode launch on the averaged
+    maps; no eval-mode BatchNorm left to the plain form)."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
     from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
     from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
     from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
@@ -482,23 +506,26 @@ def run_nview_flip_main_path(dev, gen) -> dict:
     out = pipe.run(blocks_u8[0])  # warm-up
     torch.cuda.synchronize()
     counters = {"bottleneck": bn.fused_bottleneck_block, "heatmap_decode": fd.heatmap_decode_raw,
-                "crop_resample": cr.crop_resample}
+                "crop_resample": cr.crop_resample, "bn_epilogue": be.bn_epilogue}
     for fn in counters.values():
         fn.launches = 0
+    be.bn_epilogue.plain = 0
     t0 = time.perf_counter()
     for i in range(N_BLOCKS):
         out = pipe.run(blocks_u8[i % 2])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    check_no_plain_epilogue("the n-view + flip-TTA path")
     fps = NVIEW_T * N_BLOCKS / dt
     log(f"n-view + flip-TTA main path: {N_BLOCKS} blocks of {shape} in {dt:.3f} s -> "
         f"{fps:.1f} multi-camera frames/s; launches {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the n-view + flip-TTA path")
     check(launches == {"bottleneck": 8 * N_BLOCKS, "heatmap_decode": N_BLOCKS,
-                       "crop_resample": N_BLOCKS},
-          "1 crop, 8 Bottleneck (two passes) and 1 decode launch per block")
+                       "crop_resample": N_BLOCKS, "bn_epilogue": 2 * EPI_HRNET * N_BLOCKS},
+          f"1 crop, 8 Bottleneck and {2 * EPI_HRNET} ConvBN epilogue (two passes) and 1 decode "
+          "launch per block")
     check_outputs(out, pipe, NVIEW_T, NVIEW_C)
     return {"fps": fps, "launches": launches}
 
@@ -649,6 +676,7 @@ def run_swin_main_path(dev, gen, cfg, label: str, suffix: str = "") -> dict:
     names) for the checks that follow."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
     from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
     from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
@@ -664,10 +692,11 @@ def run_swin_main_path(dev, gen, cfg, label: str, suffix: str = "") -> dict:
     out = pipe.run(blocks_u8[0])  # warm-up
     torch.cuda.synchronize()
     counters = {"swin_gemm": sb.swin_gemm, "window_attention": wa.window_attention,
-                "heatmap_decode": fd.heatmap_decode_raw, "crop_resample": cr.crop_resample}
+                "heatmap_decode": fd.heatmap_decode_raw, "crop_resample": cr.crop_resample,
+                "bn_epilogue": be.bn_epilogue}
     for fn in counters.values():
         fn.launches = 0
-    sb.swin_gemm.ln_launches = 0
+    sb.swin_gemm.ln_launches = be.bn_epilogue.plain = 0
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -678,6 +707,7 @@ def run_swin_main_path(dev, gen, cfg, label: str, suffix: str = "") -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["swin_gemm_ln"] = sb.swin_gemm.ln_launches
+    check_no_plain_epilogue(f"the {label} main path")
     fps = SWIN_T * N_SWIN_BLOCKS / dt
     log(f"{label} main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) in "
         f"{dt:.3f} s -> {fps:.1f} multi-camera frames/s; launches {launches}; peak memory "
@@ -688,10 +718,11 @@ def run_swin_main_path(dev, gen, cfg, label: str, suffix: str = "") -> dict:
     check(launches == {"swin_gemm": 4 * n_blocks * N_SWIN_BLOCKS,
                        "swin_gemm_ln": 2 * n_blocks * N_SWIN_BLOCKS,
                        "window_attention": n_blocks * N_SWIN_BLOCKS,
-                       "heatmap_decode": N_SWIN_BLOCKS, "crop_resample": N_SWIN_BLOCKS},
+                       "heatmap_decode": N_SWIN_BLOCKS, "crop_resample": N_SWIN_BLOCKS,
+                       "bn_epilogue": EPI_SWIN * N_SWIN_BLOCKS},
           f"{label}: 1 crop, {4 * n_blocks} swin_gemm product launches ({2 * n_blocks} after a "
-          f"LayerNorm row-kernel launch), {n_blocks} window-attention and 1 decode launch "
-          "per block")
+          f"LayerNorm row-kernel launch), {n_blocks} window-attention, {EPI_SWIN} ConvBN "
+          "epilogue and 1 decode launch per block")
     check_outputs(out, pipe, SWIN_T)
     return {"pipe": pipe, "frames": blocks_u8[0], "blocks": blocks_u8, "fps": fps,
             "launches": launches, "peak_bytes": peak, "held_bytes": held, "label": label,
@@ -705,6 +736,7 @@ def run_fixed_main_path(swin: dict) -> dict:
     on the stage and chained-block entry points the model calls, and the
     peak memory of the timed blocks."""
     import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
     from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
     from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
@@ -715,7 +747,7 @@ def run_fixed_main_path(swin: dict) -> dict:
     torch.cuda.synchronize()
     counters = {"swin_gemm": sb.swin_gemm, "window_attention_rows": wa.window_attention_rows,
                 "window_attention": wa.window_attention, "heatmap_decode": fd.heatmap_decode_raw,
-                "crop_resample": cr.crop_resample}
+                "crop_resample": cr.crop_resample, "bn_epilogue": be.bn_epilogue}
     calls = {"fused_swin_stage_fixed": [], "fused_swin_block": []}
     originals = {name: getattr(sb, name) for name in calls}
 
@@ -729,7 +761,7 @@ def run_fixed_main_path(swin: dict) -> dict:
         setattr(sb, name, spy(name))
     for fn in counters.values():
         fn.launches = 0
-    sb.swin_gemm.ln_launches = 0
+    sb.swin_gemm.ln_launches = be.bn_epilogue.plain = 0
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -742,6 +774,7 @@ def run_fixed_main_path(swin: dict) -> dict:
         setattr(sb, name, fn)
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["swin_gemm_ln"] = sb.swin_gemm.ln_launches
+    check_no_plain_epilogue(f"the {swin['label']} fixed-order main path")
     fps = SWIN_T * N_SWIN_BLOCKS / dt
     label, cfg = swin["label"], pipe.estimator.model.cfg
     log(f"{label} fixed-order main path: {N_SWIN_BLOCKS} blocks of ({SWIN_T}, {C}, {H}, {W}, 3) "
@@ -754,10 +787,10 @@ def run_fixed_main_path(swin: dict) -> dict:
                        "swin_gemm_ln": 2 * n_blocks * N_SWIN_BLOCKS,
                        "window_attention_rows": n_blocks * N_SWIN_BLOCKS,
                        "window_attention": 0, "heatmap_decode": N_SWIN_BLOCKS,
-                       "crop_resample": N_SWIN_BLOCKS},
+                       "crop_resample": N_SWIN_BLOCKS, "bn_epilogue": EPI_SWIN * N_SWIN_BLOCKS},
           f"{label}: 1 crop, {4 * n_blocks} swin_gemm product and {2 * n_blocks} LayerNorm row-kernel "
-          f"launches, {n_blocks} row-mode attention, 0 chained attention and 1 decode launch "
-          "per block on the fixed-order path")
+          f"launches, {n_blocks} row-mode attention, 0 chained attention, {EPI_SWIN} ConvBN "
+          "epilogue and 1 decode launch per block on the fixed-order path")
     widths = [cfg["embed"] * 2 ** i for i in range(len(cfg["depths"]))]
     check(calls["fused_swin_stage_fixed"] == widths * N_SWIN_BLOCKS,
           f"{label}: every stage ran fused_swin_stage_fixed")
@@ -1322,6 +1355,7 @@ def f32_plain_crop():
 
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by counter name."""
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
     from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
     from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
@@ -1331,7 +1365,28 @@ def kernel_counters() -> dict:
     return {"bottleneck": bn.fused_bottleneck_block, "heatmap_decode": fd.heatmap_decode_raw,
             "swin_gemm": sb.swin_gemm, "window_attention": wa.window_attention,
             "window_attention_rows": wa.window_attention_rows,
-            "crop_resample": cr.crop_resample}
+            "crop_resample": cr.crop_resample, "bn_epilogue": be.bn_epilogue}
+
+
+def check_no_plain_epilogue(what: str) -> None:
+    """No eval-mode bf16 BatchNorm of ``what`` took the plain form since
+    ``bn_epilogue.plain`` was set to 0: each was one epilogue launch."""
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
+
+    check(be.bn_epilogue.plain == 0, f"{what}: {be.bn_epilogue.plain} eval-mode BatchNorm "
+          "calls took the plain form in place of the ConvBN epilogue kernel")
+
+
+# ConvBN epilogue launches per forward (`ops.bn_epilogue`): one per BatchNorm
+# of the model, each called once (counted through the plain form on the CPU),
+# but the 13 of HRNet's stage-1 chain where the Bottleneck kernel runs it.
+EPI_HRNET = 279  # HRNet-W32 and -W48, with the stage-1 kernel
+EPI_HRNET_PLAIN_STAGE1 = 292
+EPI_SMALL_128 = 90  # test_small_128, with the stage-1 kernel
+EPI_SMALL_128_PLAIN_STAGE1 = 103
+EPI_SWIN = 3  # the head's deconvs (Swin-B and Swin-L)
+EPI_RTMPOSE_T = 33
+EPI_DETECTOR = {"rtmdet_m": 112, "centernet_w32": 9, "yolox_s": 74}  # bf16 on the card
 
 
 # The counters whose launches make up each row of the results line.
@@ -1340,22 +1395,26 @@ ROW_COUNTERS = {"stage1_bottleneck_chain": ("bottleneck",), "heatmap_decode": ("
                 "window_attention": ("window_attention",),
                 "swin_block_fixed": ("swin_gemm", "window_attention_rows"),
                 "swin_stage_fixed": ("swin_gemm", "window_attention_rows"),
-                "crop_resample": ("crop_resample",)}
+                "crop_resample": ("crop_resample",), "bn_epilogue": ("bn_epilogue",)}
 
 
 def timed_blocks(pipe, blocks, n: int, bboxes=None):
     """``n`` blocks through ``pipe.run`` with every count set to 0 just
-    before: (the last output, seconds, every counter's launches)."""
+    before: (the last output, seconds, every counter's launches); no
+    eval-mode bf16 BatchNorm took the plain form."""
     import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
 
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    be.bn_epilogue.plain = 0
     t0 = time.perf_counter()
     for i in range(n):
         out = pipe.run(blocks[i % len(blocks)], bboxes)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    check_no_plain_epilogue("the timed blocks")
     return out, dt, {k: fn.launches for k, fn in counters.items()}
 
 
@@ -1387,7 +1446,8 @@ def run_detector_path(dev, gen, det_name: str, select: str, n_blocks: int,
                       full_frame: bool = False) -> dict:
     """HRNet-W32 behind ``det_name`` through `build_pipeline(detector=...)`
     on the headline block: a warm-up block, then ``n_blocks`` counted and
-    timed blocks (4 Bottleneck and 1 decode launch per block); with
+    timed blocks (4 Bottleneck, the pose model's and the detector's ConvBN
+    epilogues and 1 decode launch per block); with
     ``full_frame``, the same pipeline again on given full-frame boxes."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
@@ -1408,10 +1468,12 @@ def run_detector_path(dev, gen, det_name: str, select: str, n_blocks: int,
     fps = T * n_blocks / dt
     log(f"{what}: {n_blocks} blocks of {shape} in {dt:.3f} s -> {fps:.1f} multi-camera "
         f"frames/s; launches {launches}")
+    epi = EPI_HRNET + EPI_DETECTOR[det_name]
     check(launches == dict(bottleneck=4 * n_blocks, heatmap_decode=n_blocks, swin_gemm=0,
                            window_attention=0, window_attention_rows=0,
-                           crop_resample=n_blocks),
-          f"{what}: 1 crop, 4 Bottleneck and 1 decode launch per block, no other kernel")
+                           crop_resample=n_blocks, bn_epilogue=epi * n_blocks),
+          f"{what}: 1 crop, 4 Bottleneck, {epi} ConvBN epilogue and 1 decode launch per block, "
+          "no other kernel")
     check_outputs(out, pipe, T)
     res = {"fps": fps, "launches": launches,
            "kept_share": check_kept_boxes(pipe, blocks[(n_blocks - 1) % 2], what)}
@@ -1427,8 +1489,8 @@ def run_detector_path(dev, gen, det_name: str, select: str, n_blocks: int,
 
 def run_simcc_path(dev, gen) -> dict:
     """RTMPose-t through `build_pipeline(family="rtmpose")` on T=256 x C=2:
-    a warm-up block, then N_BLOCKS counted and timed blocks (1 crop launch
-    per block, no other kernel)."""
+    a warm-up block, then N_BLOCKS counted and timed blocks (1 crop and 33
+    ConvBN epilogue launches per block, no other kernel)."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
     from multi_camera_3d_pose_estimation_tpu_torch.models.registry import MODEL_REGISTRY
@@ -1451,8 +1513,10 @@ def run_simcc_path(dev, gen) -> dict:
         f"multi-camera frames/s; launches {launches}; {share:.4f} of joints pass the "
         f"{pipe.conf_threshold} gate")
     check(launches == dict(bottleneck=0, heatmap_decode=0, swin_gemm=0, window_attention=0,
-                           window_attention_rows=0, crop_resample=N_BLOCKS),
-          "the SimCC path launches 1 crop kernel per block and no other kernel")
+                           window_attention_rows=0, crop_resample=N_BLOCKS,
+                           bn_epilogue=EPI_RTMPOSE_T * N_BLOCKS),
+          f"the SimCC path launches 1 crop and {EPI_RTMPOSE_T} ConvBN epilogue kernels per "
+          "block and no other kernel")
     check_outputs(out, pipe, T)
     return {"fps": fps, "launches": launches, "joint_share": share}
 
@@ -1751,8 +1815,9 @@ def run_artifact_chain(dev, phase3_fps: float) -> dict:
                 f"{fill['streamed']:.3f} ms, in memory {fill['in memory']:.3f} ms")
             check(launches == dict(bottleneck=4 * n_blocks, heatmap_decode=n_blocks, swin_gemm=0,
                                    window_attention=0, window_attention_rows=0,
-                                   crop_resample=n_blocks),
-                  f"blocks of {bs}: 1 crop, 4 Bottleneck and 1 decode launch per streamed block")
+                                   crop_resample=n_blocks, bn_epilogue=EPI_HRNET * n_blocks),
+                  f"blocks of {bs}: 1 crop, 4 Bottleneck, {EPI_HRNET} ConvBN epilogue and 1 "
+                  "decode launch per streamed block")
             check(all(a.shape[0] == STREAM_FRAMES for a in streamed[bs]), "every frame returned")
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             window = 4 * bs if bs < T else 2 * bs
@@ -2107,12 +2172,127 @@ def check_crop_kernel(dev, launches: dict) -> list:
     return rows
 
 
+EPILOGUE_CROPS = 512  # a w32_vga_c2_b256 block: 256 frames x 2 cameras
+
+
+def run_bn_epilogue_phase(dev, card: str, launches: dict) -> list:
+    """Phase 27: the ConvBN epilogue kernel (`ops.bn_epilogue`) on a
+    HRNet-W32 block's ConvBN shapes.  HRNet-W32 with random weights and
+    BatchNorm statistics far from identity, one forward of EPILOGUE_CROPS
+    random 256x192 crops with the stage-1 kernel, every epilogue call
+    recorded: 279 launches and no plain call, each call's output against the
+    plain form on its own inputs (bit for bit up to the sign of a zero), the
+    heatmaps against the same forward forced plain (equal); then the 279
+    recorded calls replayed, kernel and plain form, timed with CUDA events
+    beside their bytes bound (the map read, the residual read, the output
+    written), per distinct shape too; the forward timed both ways.  One row
+    for the results line (``launches``: phase 3's main path counts)."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.models.batchnorm import BatchNorm
+    from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
+    from multi_camera_3d_pose_estimation_tpu_torch.models.registry import build_model
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
+    from multi_camera_3d_pose_estimation_tpu_torch.ops.bottleneck import make_fused_stage1
+
+    model = build_model("hrnet", HRNET_W32, dev, seed=0)
+    gen = torch.Generator().manual_seed(27)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                n = m.num_features
+                m.running_mean.copy_(0.2 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                m.weight.copy_(0.5 + torch.rand(n, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(n, generator=gen))
+    stage1 = make_fused_stage1(model)
+    in_w, in_h = INPUT
+    x = torch.randn(EPILOGUE_CROPS, 3, in_h, in_w, generator=gen).to(dev)
+    launch, calls, main_launches = be._launch, [], launches["bn_epilogue"]
+
+    def record(*args):
+        out = launch(*args)
+        calls.append((args, out))
+        return out
+
+    def forced_plain(y, mean, mul, bias, residual, upsample, relu, lay):
+        return be.bn_epilogue_plain(y, mean, mul, bias, torch.bfloat16, residual, upsample, relu)
+
+    with torch.inference_mode():
+        model(x, fused_stage1=stage1)  # warm-up: cuDNN's plans, the kernel's build
+        torch.cuda.synchronize()
+        before, plain = be.bn_epilogue.launches, be.bn_epilogue.plain
+        be._launch = record
+        try:
+            heat = model(x, fused_stage1=stage1)
+        finally:
+            be._launch = launch
+        torch.cuda.synchronize()
+        n_launch, n_plain = be.bn_epilogue.launches - before, be.bn_epilogue.plain - plain
+        check(n_launch == len(calls) == 279 and n_plain == 0,
+              f"279 epilogue launches and no plain call a W32 forward (got {n_launch}, "
+              f"{n_plain})")
+        worst = 0
+        for args, out in calls:
+            ref = forced_plain(*args)
+            worst += int(not torch.equal(out, ref))
+        check(worst == 0, f"every epilogue call equals its plain form ({worst} differ)")
+        be._launch = forced_plain
+        try:
+            heat_plain = model(x, fused_stage1=stage1)
+            model_plain_ms = cuda_ms(lambda: model(x, fused_stage1=stage1), 3)
+        finally:
+            be._launch = launch
+        check(torch.equal(heat, heat_plain), "W32 heatmaps: kernel routed = forced plain")
+        model_ms = cuda_ms(lambda: model(x, fused_stage1=stage1), 5)
+
+        def nbytes(args):
+            y, residual, upsample = args[0], args[4], args[5]
+            out = y.numel() << (2 * upsample)
+            return 2 * (y.numel() + out + (out if residual is not None else 0))
+
+        def replay(fn):
+            for a, _ in calls:
+                fn(*a)  # each output freed at once, as in the forward
+
+        total = sum(nbytes(a) for a, _ in calls)
+        bound_ms = total / PEAK_BYTES_S * 1e3
+        ms = cuda_ms(lambda: replay(launch), 10)
+        plain_ms = cuda_ms(lambda: replay(forced_plain), 3)
+        host = host_ms(lambda: replay(launch), 5) / len(calls)
+        log(f"ConvBN epilogue kernel, HRNet-W32 {in_w}x{in_h}, {EPILOGUE_CROPS} crops: "
+            f"{n_launch} launches, every output the plain form's, heatmaps equal; all 279: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes "
+            f"({total / 1e9:.2f} GB): {bound_ms / ms:.1%} of the bound; host "
+            f"{host * 1e3:.1f} us a launch; forward {model_ms:.2f} ms, forced plain "
+            f"{model_plain_ms:.2f} ms; {card}")
+        shapes = {}
+        for args, _ in calls:
+            y, residual, upsample, relu, lay = args[0], args[4], args[5], args[6], args[7]
+            key = (tuple(y.shape), upsample, residual is not None, relu, lay)
+            shapes.setdefault(key, []).append(args)
+        for key, group in sorted(shapes.items(), key=lambda kv: -nbytes(kv[1][0]) * len(kv[1])):
+            one = cuda_ms(lambda: launch(*group[0]), 20)
+            b = nbytes(group[0]) / PEAK_BYTES_S * 1e3
+            log(f"  y {key[0]}, upsample {key[1]}, residual {key[2]}, relu {key[3]}, {key[4]}: "
+                f"x{len(group)}, {one * 1e3:.1f} us each, bound {b * 1e3:.1f} us ({b / one:.1%})")
+    del calls
+    torch.cuda.empty_cache()
+    return [{"name": "bn_epilogue", "config": f"HRNet-W32 {in_w}x{in_h}",
+             "route": "cuda", "source": f"{PORT}/csrc/bn_epilogue.cu", "replaces": None,
+             "launches": main_launches, "launches_phase_27": n_launch,
+             "crops": EPILOGUE_CROPS, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+             "share_of_bound": bound_ms / ms, "host_us_per_launch": host * 1e3,
+             "model_ms": model_ms, "model_plain_ms": model_plain_ms}]
+
+
 def run_hrnet_main_path(dev, cfg, input_size, blocks_u8, label: str) -> dict:
     """HRNet at full width through `build_pipeline` on ``blocks_u8`` (T, C,
     H, W, 3) uint8 on the card, crops of ``input_size`` (w, h): a warm-up
     block, then N_BLOCKS blocks with every count set to 0 just before and
-    read just after (1 crop, 4 Bottleneck and 1 decode launch per block, no
-    other kernel), frames/s, the output checks and the peak memory of the timed
+    read just after (1 crop, 4 Bottleneck, 279 ConvBN epilogue and 1 decode
+    launch per block, no other kernel; no eval-mode BatchNorm left to the
+    plain form), frames/s, the output checks and the peak memory of the timed
     blocks (``held_bytes`` allocated before them)."""
     import torch
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
@@ -2132,12 +2312,13 @@ def run_hrnet_main_path(dev, cfg, input_size, blocks_u8, label: str) -> dict:
     log(f"{label} main path: {N_BLOCKS} blocks of {shape}, crops {input_size[0]}x"
         f"{input_size[1]}, in {dt:.3f} s -> {fps:.1f} multi-camera frames/s; launches "
         f"{launches}; peak memory {peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} held before)")
-    for name in ("bottleneck", "heatmap_decode", "crop_resample"):
+    for name in ("bottleneck", "heatmap_decode", "crop_resample", "bn_epilogue"):
         check(launches[name] > 0, f"kernel {name} was not launched on the {label} main path")
     check(launches == dict(bottleneck=4 * N_BLOCKS, heatmap_decode=N_BLOCKS, swin_gemm=0,
                            window_attention=0, window_attention_rows=0,
-                           crop_resample=N_BLOCKS),
-          f"{label}: 1 crop, 4 Bottleneck and 1 decode launch per block, no other kernel")
+                           crop_resample=N_BLOCKS, bn_epilogue=EPI_HRNET * N_BLOCKS),
+          f"{label}: 1 crop, 4 Bottleneck, {EPI_HRNET} ConvBN epilogue and 1 decode launch per "
+          "block, no other kernel")
     check_outputs(out, pipe, shape[0], shape[1])
     return {"pipe": pipe, "fps": fps, "launches": launches, "peak_bytes": peak,
             "held_bytes": held}
@@ -2344,8 +2525,9 @@ def run_training_phase(dev, block) -> dict:
              for k in out}
     log(f"  deployed through the .npz: one block ({T}, {C}, {H}, {W}, 3) in {dt:.3f} s, "
         f"launches {launches}; outputs equal bit for bit to the weights in memory: {equal}")
-    check(launches["bottleneck"] == 4 and launches["heatmap_decode"] == 1,
-          "4 Bottleneck launches and 1 decode launch on the deployed block")
+    check(launches["bottleneck"] == 4 and launches["heatmap_decode"] == 1
+          and launches["bn_epilogue"] == EPI_HRNET,
+          f"4 Bottleneck, {EPI_HRNET} ConvBN epilogue and 1 decode launch on the deployed block")
     check(all(equal.values()), "the deployed checkpoint gives the in-memory weights' outputs")
     check_outputs(out, pipe, T)
     _, _, heat, errs = check_bottleneck_blocks(est, block, dev, "deployed ")
@@ -2545,8 +2727,10 @@ def run_pth_phase(dev, blocks_u8, phase3_fps: float) -> dict:
             f"{res['launches']['hrnet_pth']}")
         check(res["launches"]["hrnet_pth"] == dict(bottleneck=4 * n, heatmap_decode=n,
                                                    swin_gemm=0, window_attention=0,
-                                                   window_attention_rows=0, crop_resample=n),
-              "HRNet from the .pth: 1 crop, 4 Bottleneck and 1 decode launch per block")
+                                                   window_attention_rows=0, crop_resample=n,
+                                                   bn_epilogue=EPI_HRNET * n),
+              f"HRNet from the .pth: 1 crop, 4 Bottleneck, {EPI_HRNET} ConvBN epilogue and 1 "
+              "decode launch per block")
         check(same(outs["pth"], outs["npz"]),
               "HRNet from the .pth: the artifacts equal the .npz route's bit for bit")
         check_outputs({k: torch.from_numpy(v) for k, v in zip(("kpts_2d", "heatmaps_2d",
@@ -2592,9 +2776,10 @@ def run_pth_phase(dev, blocks_u8, phase3_fps: float) -> dict:
         check(res["launches"]["swin_pth"] == dict(bottleneck=0, heatmap_decode=1,
                                                   swin_gemm=4 * n_blocks,
                                                   window_attention=n_blocks,
-                                                  window_attention_rows=0, crop_resample=1),
-              "Swin-B from the .pth: 1 crop, 96 swin_gemm, 24 attention and 1 decode launch "
-              "per block")
+                                                  window_attention_rows=0, crop_resample=1,
+                                                  bn_epilogue=EPI_SWIN),
+              "Swin-B from the .pth: 1 crop, 96 swin_gemm, 24 attention, 3 ConvBN epilogue and "
+              "1 decode launch per block")
         check(same(souts["pth"].values(), souts["npz"].values()),
               "Swin-B from the .pth: the outputs equal the .npz route's bit for bit")
         # Each stage's first shifted block: its window attention on the checkpoint's bias table.
@@ -2669,8 +2854,10 @@ def run_pth_phase(dev, blocks_u8, phase3_fps: float) -> dict:
             f"(.npz route {res['estimate_npz_s']:.2f} s), launches "
             f"{res['launches']['estimate_pth']}; kpts_2d {on_disk[0].shape}")
         check(res["launches"]["estimate_pth"]["bottleneck"] == 4 * nb
-              and res["launches"]["estimate_pth"]["heatmap_decode"] == nb,
-              "the estimate CLI from the .pth: 4 Bottleneck and 1 decode launch per block")
+              and res["launches"]["estimate_pth"]["heatmap_decode"] == nb
+              and res["launches"]["estimate_pth"]["bn_epilogue"] == EPI_HRNET * nb,
+              f"the estimate CLI from the .pth: 4 Bottleneck, {EPI_HRNET} ConvBN epilogue and 1 "
+              "decode launch per block")
         check(on_disk[0].shape == (PTH_FRAMES, 17, 3, C) and same(arts["pth"], on_disk)
               and same(arts["pth"], arts["npz"]),
               "the estimate CLI from the .pth: the artifacts equal the .npz route's bit for bit")
@@ -2809,6 +2996,7 @@ def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float, swin: dict) -> dict:
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
     from multi_camera_3d_pose_estimation_tpu_torch.models.batchnorm import BatchNorm
     from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W32
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
     from multi_camera_3d_pose_estimation_tpu_torch.parallel import (ShardedPosePipeline,
                                                                     init_distributed,
                                                                     make_clip_mesh, make_mesh,
@@ -2845,8 +3033,10 @@ def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float, swin: dict) -> dict:
         log(f"  headline block on make_mesh(1): {N_BLOCKS} blocks of ({T}, {C}, {H}, {W}, 3) in "
             f"{dt:.3f} s -> {res['mesh_frames_per_s']:.1f} frames/s (phase 3 {phase3_fps:.1f}); "
             f"launches {launches}; equal to mesh=None bit for bit: {equal}")
-        check(launches["bottleneck"] == 4 * N_BLOCKS and launches["heatmap_decode"] == N_BLOCKS,
-              "the mesh pipeline: 4 Bottleneck launches and 1 decode launch per block")
+        check(launches["bottleneck"] == 4 * N_BLOCKS and launches["heatmap_decode"] == N_BLOCKS
+              and launches["bn_epilogue"] == EPI_HRNET * N_BLOCKS,
+              f"the mesh pipeline: 4 Bottleneck, {EPI_HRNET} ConvBN epilogue and 1 decode launch "
+              "per block")
         check(equal, "the one-rank mesh pipeline equals mesh=None bit for bit")
         check_outputs(out, sharded, T)
         res["launches"]["headline"] = launches
@@ -2865,8 +3055,9 @@ def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float, swin: dict) -> dict:
         n_swin = sum(spipe.estimator.model.cfg["depths"])
         check(launches == dict(bottleneck=0, heatmap_decode=1, swin_gemm=4 * n_swin,
                                window_attention=n_swin, window_attention_rows=0,
-                               crop_resample=1),
-              "the Swin-B mesh pipeline: 1 crop, 96 swin_gemm, 24 attention and 1 decode launch")
+                               crop_resample=1, bn_epilogue=EPI_SWIN),
+              "the Swin-B mesh pipeline: 1 crop, 96 swin_gemm, 24 attention, 3 ConvBN epilogue "
+              "and 1 decode launch")
         check(equal, "the one-rank mesh Swin-B pipeline equals mesh=None bit for bit")
         res["launches"]["swin_b"] = launches
         del ssharded, out
@@ -2885,12 +3076,14 @@ def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float, swin: dict) -> dict:
         counters = kernel_counters()
         for fn in counters.values():
             fn.launches = 0
+        be.bn_epilogue.plain = 0
         t0 = time.perf_counter()
         for i in range(N_MULTICLIP_BLOCKS):
             stacked = run_clips_batched(mc_mesh, clips[i % 2], split=False)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        check_no_plain_epilogue("run_clips_batched")
         res["multiclip_frames_per_s"] = n_clips * clip_t * N_MULTICLIP_BLOCKS / dt
         last = clips[(N_MULTICLIP_BLOCKS - 1) % 2]
         split = run_clips_batched(mc_mesh, last, split=True)
@@ -2905,8 +3098,10 @@ def run_mesh_phase(dev, pipe, blocks_u8, phase3_fps: float, swin: dict) -> dict:
             f"split=True equal to split=False: {split_equal}; equal to mesh=None: "
             f"{same_tensors(flat, one)}")
         check(launches["bottleneck"] == 4 * N_MULTICLIP_BLOCKS
-              and launches["heatmap_decode"] == N_MULTICLIP_BLOCKS,
-              "run_clips_batched: 4 Bottleneck launches and 1 decode launch per block")
+              and launches["heatmap_decode"] == N_MULTICLIP_BLOCKS
+              and launches["bn_epilogue"] == EPI_HRNET * N_MULTICLIP_BLOCKS,
+              f"run_clips_batched: 4 Bottleneck, {EPI_HRNET} ConvBN epilogue and 1 decode launch "
+              "per block")
         check(split_equal and same_tensors(flat, one),
               "run_clips_batched: split equals unsplit, and both the one-device pipeline")
         check_outputs(flat, mc_mesh, n_clips * clip_t, cams)
@@ -3268,8 +3463,10 @@ def run_calibration_phase(dev, pipe, blocks_u8, phase3_fps: float) -> dict:
         f"kpts_2d equal to phase 3's bit for bit: {same_2d}; kpts_3d against the CPU-calibrated "
         f"rig {gap_3d:.3g} of the largest (limit {CAL_3D_RTOL}), NaN where NaN: {nan_same}, "
         f"finite share {float(fin.float().mean()):.4f}")
-    check(launches["bottleneck"] == 4 * N_BLOCKS and launches["heatmap_decode"] == N_BLOCKS,
-          "the calibrated rig: 4 Bottleneck launches and 1 decode launch per block")
+    check(launches["bottleneck"] == 4 * N_BLOCKS and launches["heatmap_decode"] == N_BLOCKS
+          and launches["bn_epilogue"] == EPI_HRNET * N_BLOCKS,
+          f"the calibrated rig: 4 Bottleneck, {EPI_HRNET} ConvBN epilogue and 1 decode launch "
+          "per block")
     check(same_2d, "kpts_2d on the calibrated rig equal phase 3's bit for bit")
     check(nan_same and gap_3d <= CAL_3D_RTOL, "kpts_3d on the card's and the CPU's rigs agree")
     check_outputs(out, calibrated, T)
@@ -3289,20 +3486,30 @@ DOCTOR_REQUIRED = ("import torch", "import numpy", "native mediadec", "4-rank gl
                    "device backend", "kernel libraries")
 
 
-def trace_kernel_counts(path: str) -> dict:
+def trace_kernel_counts(path: str, runs: slice) -> dict:
     """CUDA kernels in a Chrome trace written by `utils.trace`, by the
-    substrings `profile_block.py` files the port's kernels under."""
+    substrings `profile_block.py` files the port's kernels under: those
+    launched inside the ``mc3d.pipeline.run`` spans that ``runs`` selects
+    (in time order), each kernel matched to its launch by correlation id."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == "mc3d.pipeline.run" and e.get("ph") == "X")[runs]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    names = [e["name"] for e in events if e.get("cat") == "kernel"
+             and any(a <= launched.get(e["args"].get("correlation"), -1) <= b for a, b in spans)]
     return {"bottleneck": sum("bottleneck_kernel" in n for n in names),
             "heatmap_decode": sum("decode_kernel" in n for n in names),
+            "bn_epilogue": sum("bn_epilogue_kernel" in n for n in names),
             "all_kernels": len(names)}
 
 
 def run_trace_and_timer(dev, pipe, blocks_u8, phase3_fps: float, res: dict) -> None:
-    """(a) `utils.trace` around TRACE_BLOCKS headline blocks, the trace
-    parsed for the two kernels; (b) `StepTimer` over TIMER_BLOCKS streamed
+    """(a) `utils.trace` around TRACE_BLOCKS headline blocks between a
+    lead-in and a lead-out block, the trace parsed for the stage-1, decode
+    and ConvBN epilogue kernels the counted blocks launched; (b) `StepTimer` over TIMER_BLOCKS streamed
     blocks."""
     import tempfile
 
@@ -3312,15 +3519,23 @@ def run_trace_and_timer(dev, pipe, blocks_u8, phase3_fps: float, res: dict) -> N
 
     counters = kernel_counters()
     with tempfile.TemporaryDirectory() as tmp:
-        for fn in counters.values():
-            fn.launches = 0
         with trace(tmp) as prof:
+            # The profiler's device timestamps drift from its host clock as
+            # a process runs (on an H100, kernels placed up to ~10 ms off
+            # their launches after 5 minutes), and it drops the device
+            # events it places outside its capture window: a lead-in and a
+            # lead-out block, not counted, take that loss.
+            pipe.run(blocks_u8[-1])
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
             t0 = time.perf_counter()
             outs = [pipe.run(blocks_u8[i % len(blocks_u8)]) for i in range(TRACE_BLOCKS)]
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
-        in_trace = trace_kernel_counts(prof.trace_path)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            pipe.run(blocks_u8[-1])
+        in_trace = trace_kernel_counts(prof.trace_path, slice(1, 1 + TRACE_BLOCKS))
         size = os.path.getsize(prof.trace_path)
     res["launches"]["trace"] = launches
     res["trace_fps"] = T * TRACE_BLOCKS / dt
@@ -3331,14 +3546,15 @@ def run_trace_and_timer(dev, pipe, blocks_u8, phase3_fps: float, res: dict) -> N
     log(f"  (a) trace: {TRACE_BLOCKS} blocks of ({T}, {C}, {H}, {W}, 3) under the profiler in "
         f"{dt:.3f} s -> {res['trace_fps']:.1f} frames/s (phase 3, no profiler: "
         f"{phase3_fps:.1f}); the trace file {size / 1e6:.2f} MB, {in_trace['all_kernels']} CUDA "
-        f"kernels, of them stage-1 {in_trace['bottleneck']} and decode "
-        f"{in_trace['heatmap_decode']}; the wrappers counted {launches}; outputs equal to "
+        f"kernels launched in the counted blocks, of them stage-1 {in_trace['bottleneck']}, decode "
+        f"{in_trace['heatmap_decode']} and ConvBN epilogue {in_trace['bn_epilogue']}; the "
+        f"wrappers counted {launches}; outputs equal to "
         f"phase 3's bit for bit: {same}")
     check(in_trace["bottleneck"] == 4 * TRACE_BLOCKS
-          and in_trace["heatmap_decode"] == TRACE_BLOCKS,
-          "the trace holds 4 stage-1 and 1 decode kernel per block")
-    check(launches["bottleneck"] == 4 * TRACE_BLOCKS
-          and launches["heatmap_decode"] == TRACE_BLOCKS,
+          and in_trace["heatmap_decode"] == TRACE_BLOCKS
+          and in_trace["bn_epilogue"] == EPI_HRNET * TRACE_BLOCKS,
+          f"the trace holds 4 stage-1, {EPI_HRNET} ConvBN epilogue and 1 decode kernel per block")
+    check(all(launches[k] == in_trace[k] for k in ("bottleneck", "heatmap_decode", "bn_epilogue")),
           "the wrappers counted the kernels the trace holds")
     check(same, "the traced blocks' outputs equal phase 3's bit for bit")
 
@@ -3364,8 +3580,10 @@ def run_trace_and_timer(dev, pipe, blocks_u8, phase3_fps: float, res: dict) -> N
     check(n_out == T * TIMER_BLOCKS and timer.counts["compute"] == TIMER_BLOCKS
           and timer.counts["staged"] == TIMER_BLOCKS + 1 and "compute: " in report,
           "StepTimer timed every stage of every block")
-    check(res["launches"]["step_timer"]["bottleneck"] == 4 * TIMER_BLOCKS,
-          "the streamed blocks launched the stage-1 kernel 4 times each")
+    check(res["launches"]["step_timer"]["bottleneck"] == 4 * TIMER_BLOCKS
+          and res["launches"]["step_timer"]["bn_epilogue"] == EPI_HRNET * TIMER_BLOCKS,
+          f"the streamed blocks launched the stage-1 kernel 4 times and the ConvBN epilogue "
+          f"{EPI_HRNET} times each")
 
 
 def run_cost_profile(dev, res: dict) -> None:
@@ -3631,19 +3849,25 @@ PARITY_W32 = {"mpjpe_3d": 0.98, "mpjpe_3d_median": 0.95, "mpjpe_3d_refined": 1.1
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside the block the stage-1, decode and crop wrappers compute their
-    plain versions on the card (no launch, no count; the crop's is
-    `f32_plain_crop`): path (p) of phase 26."""
+    """Inside the block the stage-1, decode, crop and ConvBN epilogue
+    wrappers compute their plain versions on the card (no launch, no count;
+    the crop's is `f32_plain_crop`): path (p) of phase 26."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
     from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
     from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
 
-    saved = bn._launch, fd._launch
+    def epilogue_plain(y, mean, mul, bias, residual, upsample, relu, lay):
+        return be.bn_epilogue_plain(y, mean, mul, bias, torch.bfloat16, residual, upsample, relu)
+
+    saved = bn._launch, fd._launch, be._launch
     bn._launch, fd._launch = bn.bottleneck_block_plain, fd.heatmap_decode_raw_plain
+    be._launch = epilogue_plain
     try:
         with f32_plain_crop():
             yield
     finally:
-        bn._launch, fd._launch = saved
+        bn._launch, fd._launch, be._launch = saved
 
 
 def joint_gaps(xy_x, xy_y) -> dict:
@@ -3663,17 +3887,22 @@ def log_gaps(label: str, gaps: dict) -> None:
         f"{gaps['max']:.4f} px")
 
 
-def check_kernel_launches(label: str, launches: dict, way: str, forwards: int) -> None:
+def check_kernel_launches(label: str, launches: dict, way: str, forwards: int,
+                          epilogues: tuple) -> None:
     """(a), (b) and (c): 1 crop launch per flip-TTA pair (the crop kernel is
-    on every card path); (c) also 4 Bottleneck launches per model forward
-    and 1 decode launch per flip-TTA pair; (p): no launch."""
+    on every card path); (b) and (c), bf16, also one ConvBN epilogue launch
+    per BatchNorm a forward (``epilogues``: (b)'s with the stage-1 chain
+    plain, (c)'s with it in the Bottleneck kernel), (a) in f32 none; (c)
+    also 4 Bottleneck launches per model forward and 1 decode launch per
+    flip-TTA pair; (p): no launch.  (The detector is f32: no launch.)"""
     if way == "p":
         check(not any(launches.values()), f"{label} (p) launches no kernel")
         return
     stage1 = way == "c"
     want = dict(bottleneck=4 * forwards if stage1 else 0,
                 heatmap_decode=forwards // 2 if stage1 else 0, swin_gemm=0, window_attention=0,
-                window_attention_rows=0, crop_resample=forwards // 2)
+                window_attention_rows=0, crop_resample=forwards // 2,
+                bn_epilogue=0 if way == "a" else epilogues[stage1] * forwards)
     check(launches == want, f"{label} ({way}): {want} in {forwards} forwards")
 
 
@@ -3757,7 +3986,8 @@ def run_flagship_drill(dev, pose_steps: int, det_steps: int, n_frames: int,
     # The pipeline's block and the flip-shift pair, each through flip-TTA.
     for name, r in (("trained", trained), ("random init", untrained)):
         for way in "abcp":
-            check_kernel_launches(f"W32 {name}", r[way][3], way, forwards=6)
+            check_kernel_launches(f"W32 {name}", r[way][3], way, forwards=6,
+                                  epilogues=(EPI_HRNET_PLAIN_STAGE1, EPI_HRNET))
 
     # Each kernel against its plain version on the trained weights' inputs
     # (full-frame crops of the clip the deploys scored, as phase 4 holds
@@ -3858,7 +4088,8 @@ def run_train_cli_drill(dev, steps: int, workdir: str) -> dict:
             px[name, way] = float(np.linalg.norm(xy[name, way] - truth, axis=-1).mean())
             log(f"  {res['model']} {name} ({way}): px_err {px[name, way]:.4f} on {TRAIN_EVAL_N} "
                 f"held-out images (flip-TTA); launches {launches[name, way]}")
-            check_kernel_launches(f"{res['model']} {name}", launches[name, way], way, forwards=2)
+            check_kernel_launches(f"{res['model']} {name}", launches[name, way], way, forwards=2,
+                                  epilogues=(EPI_SMALL_128_PLAIN_STAGE1, EPI_SMALL_128))
             del est
 
     est = build_estimator(args.model, checkpoint=ckpt, device=dev, **kernels)
@@ -4087,10 +4318,18 @@ def main() -> int:
     accuracy["seconds"] = time.perf_counter() - t26
     log(f"phase 26 took {accuracy['seconds']:.1f} s")
 
-    # 27. Results.
+    # 27. The ConvBN epilogue kernel on a W32 block's shapes.
+    t27 = time.perf_counter()
+    epilogue_rows = run_bn_epilogue_phase(dev, card, launches)
+    log(f"phase 27 took {time.perf_counter() - t27:.1f} s")
+
+    # 28. Results.
     hrnet_rows[0]["flip_path_launches"] = nview["launches"]["bottleneck"]
     hrnet_rows[1]["flip_path_launches"] = nview["launches"]["heatmap_decode"]
-    for row in hrnet_rows + crop_rows + swin_rows + fixed_rows_json:
+    epilogue_rows[0]["flip_path_launches"] = nview["launches"]["bn_epilogue"]
+    epilogue_rows[0]["swin_launches"] = swin["launches"]["bn_epilogue"]
+    epilogue_rows[0]["swin_fixed_launches"] = fixed["launches"]["bn_epilogue"]
+    for row in hrnet_rows + crop_rows + swin_rows + fixed_rows_json + epilogue_rows:
         row["launches_phases_15_17"] = {
             path: sum(r["launches"][c] for c in ROW_COUNTERS[row["name"]])
             for path, r in paths.items()}
@@ -4118,7 +4357,8 @@ def main() -> int:
         row["launches_phase_26"] = {
             what: sum(n[c] for c in ROW_COUNTERS[row["name"]])
             for what, n in accuracy["launches"].items()}
-    kernels = hrnet_rows + crop_rows + swin_rows + fixed_rows_json + published["rows"]
+    kernels = (hrnet_rows + crop_rows + swin_rows + fixed_rows_json + published["rows"]
+               + epilogue_rows)
     wall = time.perf_counter() - wall0
     log(f"chip_smoke wall time {wall:.1f} s")
     det = paths["rtmdet_m"]

@@ -13,8 +13,10 @@ and the RTMPose SimCC family, behind the person detectors (CenterNet,
 RTMDet, YOLOX; top-1 or consistent selection) in plain PyTorch,
 with CUDA kernels for the HRNet stage-1 Bottleneck (`ops.bottleneck`,
 ``csrc/bottleneck.cu``), the single-pass heatmap decode (`ops.fused_decode`,
-``csrc/fused_decode.cu``) and the whole SwinBlock (`ops.swin_block`:
-``csrc/swin_gemm.cu`` and ``csrc/window_attention.cu``); and the 3-D half
+``csrc/fused_decode.cu``), the whole SwinBlock (`ops.swin_block`:
+``csrc/swin_gemm.cu`` and ``csrc/window_attention.cu``), the crop
+(`ops.crop_resample`) and the eval-mode ConvBN epilogue (`ops.bn_epilogue`,
+``csrc/bn_epilogue.cu``); and the 3-D half
 in plain PyTorch: `ops.get_pose_3d`, `refine.linear_interpolation`, and
 the Adam/MLE refiners `refine.PoseRefiner` and `refine.ExtrinsicRefiner`;
 the artifact chain (`io`, `cli`), training, MMPose checkpoints and the mesh

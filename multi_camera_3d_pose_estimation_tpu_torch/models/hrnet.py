@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``models/hrnet.py``: same architecture,
 same numerics (convs in the compute dtype, BatchNorm applied in f32 and
 cast back (`models.batchnorm`: running statistics, or the batch's in train
-mode), the head's output cast to f32), and submodules named
+mode; in eval mode on the card one epilogue kernel a ConvBN, with its ReLU
+and the residual or fusion sum), the head's output cast to f32), and submodules named
 after the flax auto-names (``ConvBN_0``, ``Bottleneck_2``, ``HRModule_1``,
 ``FuseLayer_0``, ``head``, ...) so a flax variables tree maps onto the
 ``state_dict`` mechanically (`models.convert`).  Parameters are f32; the
@@ -18,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .batchnorm import BatchNorm, batch_norm
+from .batchnorm import BatchNorm, batch_norm_act
 
 __all__ = ["HRNet", "HRNET_W32", "HRNET_W48", "ConvBN", "Bottleneck", "BasicBlock",
            "FuseLayer", "HRModule"]
@@ -51,11 +52,14 @@ class ConvBN(nn.Module):
         self.act = act
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, residual=None, upsample: int = 0, relu: bool | None = None):
+        """The conv, then `batch_norm_act`'s epilogue: the BatchNorm, its
+        result upsampled by ``2**upsample``, ``residual +`` that, and the
+        ReLU (``relu``, by default ``act``)."""
         y = conv2d(x, self.Conv_0.weight.to(self.dtype), self.Conv_0.stride,
                    self.Conv_0.padding)
-        y = batch_norm(y, self.BatchNorm_0, self.dtype)
-        return torch.relu(y) if self.act else y
+        return batch_norm_act(y, self.BatchNorm_0, self.dtype, residual=residual,
+                              upsample=upsample, relu=self.act if relu is None else relu)
 
 
 class Bottleneck(nn.Module):
@@ -85,7 +89,7 @@ class BasicBlock(nn.Module):
         self.ConvBN_1 = ConvBN(features, features, 3, act=False, dtype=dtype)
 
     def forward(self, x):
-        return torch.relu(self.ConvBN_1(self.ConvBN_0(x)) + x)
+        return self.ConvBN_1(self.ConvBN_0(x), residual=x, relu=True)
 
 
 class FuseLayer(nn.Module):
@@ -121,17 +125,27 @@ class FuseLayer(nn.Module):
             self.paths.append(row)
 
     def forward(self, xs):
+        """Row i sums its terms in order, (((t0 + t1) + t2) ...), each sum
+        rounded to the compute dtype, then the ReLU.  A term's last ConvBN
+        adds the running sum as its residual (after its nearest upsample
+        where j > i), and the row's last term takes the ReLU; the identity
+        term (j == i) is a plain add."""
         outs = []
         for i in range(self.n_out):
             acc = None
             for j, names in enumerate(self.paths[i]):
+                last = j == len(self.paths[i]) - 1
+                if not names:
+                    acc = xs[j] if acc is None else acc + xs[j]
+                    if last:
+                        acc = torch.relu(acc)
+                    continue
                 y = xs[j]
-                for name in names:
+                for name in names[:-1]:
                     y = getattr(self, name)(y)
-                if j > i:
-                    y = F.interpolate(y, scale_factor=2 ** (j - i), mode="nearest")
-                acc = y if acc is None else acc + y
-            outs.append(torch.relu(acc))
+                acc = getattr(self, names[-1])(y, residual=acc, upsample=max(j - i, 0),
+                                               relu=last)
+            outs.append(acc)
         return outs
 
 

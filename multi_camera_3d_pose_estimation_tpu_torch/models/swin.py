@@ -58,7 +58,7 @@ from ..ops.swin_geometry import (device_table, fixed_partition, fixed_reverse, p
                                  shift_mask, shift_regions, window_roll_perm)
 from ..ops.window_attention import (fused_window_attention, packed_window_attention,
                                     window_attention_plain)
-from .batchnorm import BatchNorm, batch_norm
+from .batchnorm import BatchNorm, batch_norm_act
 
 __all__ = ["SwinPose", "SwinTransformer", "SwinBlock", "WindowAttention", "PatchMerging",
            "Deconv", "SWIN_B", "SWIN_L", "SWIN_T", "ATTENTION_MODES"]
@@ -307,7 +307,7 @@ class SwinPose(nn.Module):
         y = self.backbone(x).permute(0, 3, 1, 2)  # NCHW view of NHWC tokens
         for d in range(len(self.cfg["deconv"])):
             y = getattr(self, f"deconv_{d}")(y, dt)
-            y = torch.relu(batch_norm(y, getattr(self, f"deconv_bn_{d}"), dt))
+            y = batch_norm_act(y, getattr(self, f"deconv_bn_{d}"), dt, relu=True)
         head = self.final_layer
         heat = F.conv2d(y, head.weight.to(dt)) + head.bias.to(dt)[:, None, None]
         return heat.float()

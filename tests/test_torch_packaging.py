@@ -32,7 +32,7 @@ PKG = "multi_camera_3d_pose_estimation_tpu_torch"
 
 @pytest.mark.parametrize("path", ["native/mediadec.cpp", "native/Makefile", "csrc/bottleneck.cu",
                                   "csrc/fused_decode.cu", "csrc/swin_gemm.cu",
-                                  "csrc/window_attention.cu"])
+                                  "csrc/window_attention.cu", "csrc/bn_epilogue.cu"])
 def test_port_sources_ship_as_package_data(path):
     with open(REPO / "pyproject.toml", "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]

@@ -16,6 +16,7 @@ import torch
 
 from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNet
 from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SwinPose
+from multi_camera_3d_pose_estimation_tpu_torch.ops import bn_epilogue as be
 from multi_camera_3d_pose_estimation_tpu_torch.ops import bottleneck as bn
 from multi_camera_3d_pose_estimation_tpu_torch.ops import crop_resample as cr
 from multi_camera_3d_pose_estimation_tpu_torch.ops import fused_decode as fd
@@ -45,10 +46,17 @@ def _calls():
     rows = torch.as_tensor(window_roll_perm(2, 4, 2, 0, 0).astype(np.int32))
     frames = torch.rand(2, 12, 10, 3, generator=g)
     boxes = torch.tensor([[0.0, 0.0, 10.0, 12.0], [2.0, 3.0, 7.0, 9.0]])
+    ymap = torch.randn(2, 8, 3, 2, generator=g).to(torch.bfloat16)
+    res = torch.randn(2, 8, 6, 4, generator=g).to(torch.bfloat16)
+    mean, mul, beta = (torch.randn(8, generator=g) for _ in range(3))
     return {
         "bottleneck": ("bottleneck kernel", lambda r: bn.fused_bottleneck_block(r(x), p)),
         "bottleneck_weights": ("bottleneck kernel", lambda r: bn.fused_bottleneck_block(
             x, {**p, "w1": r(p["w1"])})),
+        "bn_epilogue": ("BatchNorm epilogue kernel", lambda r: be.bn_epilogue(
+            r(ymap), mean, mul, beta, residual=res, upsample=1, relu=True)),
+        "bn_epilogue_residual": ("BatchNorm epilogue kernel", lambda r: be.bn_epilogue(
+            ymap, mean, mul, beta, residual=r(res), upsample=1, relu=True)),
         "crop": ("crop kernel", lambda r: cr.crop_resample(r(frames), boxes, (8, 16))),
         "crop_boxes": ("crop kernel", lambda r: cr.crop_resample(frames, r(boxes), (8, 16))),
         "decode": ("heatmap decode kernel", lambda r: fd.heatmap_decode_raw(r(maps), 6)),
