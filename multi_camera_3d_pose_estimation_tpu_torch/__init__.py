@@ -16,7 +16,9 @@ with CUDA kernels for the HRNet stage-1 Bottleneck (`ops.bottleneck`,
 ``csrc/fused_decode.cu``), the whole SwinBlock (`ops.swin_block`:
 ``csrc/swin_gemm.cu`` and ``csrc/window_attention.cu``), the crop
 (`ops.crop_resample`) and the eval-mode ConvBN epilogue (`ops.bn_epilogue`,
-``csrc/bn_epilogue.cu``); and the 3-D half
+``csrc/bn_epilogue.cu``), each run wherever a call is its function
+(`models.batchnorm.runs_kernels`: eval-mode bf16 inference that autograd
+does not follow; the default decode and the crop always); and the 3-D half
 in plain PyTorch: `ops.get_pose_3d`, `refine.linear_interpolation`, and
 the Adam/MLE refiners `refine.PoseRefiner` and `refine.ExtrinsicRefiner`;
 the artifact chain (`io`, `cli`), training, MMPose checkpoints and the mesh

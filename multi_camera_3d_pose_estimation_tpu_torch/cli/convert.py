@@ -64,8 +64,7 @@ def main(argv=None):
     if family not in ("hrnet", "rtmpose", "swin"):
         print(f"no converter for family '{family}'", file=sys.stderr)
         raise SystemExit(2)
-    model = new_model(family, cfg, args.device, input_size, args.num_joints, torch.float32,
-                      swin_attention=False)
+    model = new_model(family, cfg, args.device, input_size, args.num_joints, torch.float32)
     TORCH_LOADERS[family](model, args.checkpoint, cfg)
     if args.out:
         save_checkpoint_npz(model, args.out, family)

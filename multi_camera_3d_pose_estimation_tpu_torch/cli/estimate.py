@@ -219,8 +219,9 @@ def estimate_pose_from_video(
       (read through the strict name maps of `models.convert`) or the JAX
       package's ``.npz`` checkpoints; None draws random weights.
     - ``estimator_kwargs``: `models.TopDownEstimator` options, e.g.
-      ``{"use_fused_stage1": True, "use_fused_decode": True}`` for the
-      stage-1 and decode kernels (off by default, as in the JAX package).
+      ``{"flip_test": True, "decode_mode": "dark"}``.  The kernels need no
+      option: bf16 inference on the card runs them
+      (`models.batchnorm.runs_kernels`).
     - ``triangulation``: "top2" or "nview".
     - ``mesh``: a mesh of `parallel.make_mesh`; every rank calls this with
       the same arguments and returns the same arrays (``block_size`` a

@@ -35,17 +35,16 @@ def synthetic_rig(n_cams: int, H: int, W: int) -> dict:
 def build_pipeline(cfg, input_size, frames_shape, device="cuda", variables=None,
                    seed: int = 0, family: str = "hrnet", triangulation: str = "top2",
                    flip_test: bool = False, flip_shift: bool = True,
-                   decode_mode: str = "default", use_fused_decode: bool = True,
-                   connectivity_type: str = "coco", detector=None,
-                   detector_select: str = "top1") -> ShardedPosePipeline:
-    """The C-camera 2D+3D block pipeline on ``device``, bf16, with the
-    kernels on (as on the accelerator): HRNet's stage-1 Bottleneck and the
-    heatmap decode, or, for ``family="swin"``, the whole-SwinBlock kernels
-    and the heatmap decode; ``family="rtmpose"`` (SimCC decode) reaches no
-    kernel.  ``triangulation``, ``flip_test``,
-    ``flip_shift``, ``decode_mode`` (the unfused decode's, so it needs
-    ``use_fused_decode=False``) and ``connectivity_type``: as in
-    `ShardedPosePipeline` and `TopDownEstimator`.
+                   decode_mode: str = "default", connectivity_type: str = "coco",
+                   detector=None, detector_select: str = "top1") -> ShardedPosePipeline:
+    """The C-camera 2D+3D block pipeline on ``device``, bf16, so with the
+    kernels of its model and decode (`models.batchnorm.runs_kernels`):
+    HRNet's stage-1 Bottleneck, or, for ``family="swin"``, the
+    whole-SwinBlock kernels, and the heatmap decode; ``family="rtmpose"``
+    (SimCC decode) reaches only the crop and ConvBN epilogue kernels.
+    ``triangulation``, ``flip_test``, ``flip_shift``, ``decode_mode`` and
+    ``connectivity_type``: as in `ShardedPosePipeline` and
+    `TopDownEstimator`.
 
     - ``cfg``: `models.hrnet.HRNET_W32`, `models.swin.SWIN_B` or
       `models.rtmpose.RTMPOSE_T`-style config; ``input_size`` (w, h).
@@ -61,9 +60,7 @@ def build_pipeline(cfg, input_size, frames_shape, device="cuda", variables=None,
     model = build_model(family, cfg, device, variables, seed, input_size)
     est = TopDownEstimator(model, input_size=input_size,
                            decode="simcc" if family == "rtmpose" else "heatmap",
-                           use_fused_decode=use_fused_decode,
-                           use_fused_stage1=family == "hrnet", flip_test=flip_test,
-                           flip_shift=flip_shift, decode_mode=decode_mode,
+                           flip_test=flip_test, flip_shift=flip_shift, decode_mode=decode_mode,
                            connectivity_type=connectivity_type, device=device)
     if isinstance(detector, str):
         detector = build_detector(detector, device=device, seed=seed, select=detector_select)

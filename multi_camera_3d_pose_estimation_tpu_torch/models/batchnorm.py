@@ -18,10 +18,14 @@ A `BatchNorm` starts in eval mode, as the flax modules default to
 ``train=False``: a model takes batch statistics only after ``model.train()``.
 
 `batch_norm_act` adds the rest of a ConvBN's epilogue (a nearest upsample,
-a residual sum, the ReLU).  In eval mode, on bf16 maps that autograd does
-not follow, it is `ops.bn_epilogue.bn_epilogue`: on the card one launch of
-the epilogue kernel, with the same bits; train mode, calibration, a
-data-parallel step, autograd, f32 and f64 take the plain form.
+a residual sum, the ReLU).  Where `runs_kernels` holds it is
+`ops.bn_epilogue.bn_epilogue`: on the card one launch of the epilogue
+kernel, with the same bits; train mode, calibration, a data-parallel step,
+autograd, f32 and f64 take the plain form.
+
+`runs_kernels` is the one rule that picks every kernel of the port's
+models: the epilogue here, HRNet's stage-1 Bottleneck chain and the whole
+SwinBlock (`models.hrnet`, `models.swin`).
 
 In a data-parallel train step (`synced_batch_norm`) the batch is the global
 one: the JAX package's step is a global-view program that XLA shards, so
@@ -39,7 +43,7 @@ import torch.nn as nn
 from ..ops import bn_epilogue as _bne
 
 __all__ = ["BatchNorm", "batch_norm", "batch_norm_act", "calibrating_batch_norm",
-           "synced_batch_norm", "MOMENTUM"]
+           "synced_batch_norm", "runs_kernels", "cached_by_tensors", "MOMENTUM"]
 
 MOMENTUM = 0.9  # flax's: running = MOMENTUM·running + (1 − MOMENTUM)·batch
 
@@ -105,16 +109,15 @@ def batch_norm_act(y: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype, *,
     ``residual +`` it (of the upsampled shape), and the ReLU
     (`ops.bn_epilogue.bn_epilogue_plain`).
 
-    Where the call is the epilogue kernel's function (`_kernel_vectors`:
-    eval mode outside `calibrating_batch_norm` and `synced_batch_norm`,
-    bf16 throughout, no input that autograd follows) it is
+    Where the call is the epilogue kernel's function (`runs_kernels` of
+    ``bn``, ``y`` and ``residual``, and f32 statistics) it is
     `ops.bn_epilogue.bn_epilogue` with the BatchNorm's cached vectors: on
     the card one launch, in whatever layout the maps come (it raises
     rather than fall back), bit for bit the plain form.  Every other call
     takes the plain form; ``bn_epilogue.plain`` counts the eval-mode bf16
     ones on the card.
     """
-    vectors = _kernel_vectors(y, bn, dtype, residual)
+    vectors = _eval_vectors(bn) if runs_kernels(bn, dtype, y, residual) else None
     if vectors is not None:
         return _bne.bn_epilogue(y, *vectors, residual=residual, upsample=upsample, relu=relu)
     if y.is_cuda and not bn.training and y.dtype == dtype == torch.bfloat16:
@@ -138,42 +141,54 @@ def batch_norm_act(y: torch.Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype, *,
     return _bne.bn_epilogue_plain(yf, mean, mul, bn.bias, dtype, residual, upsample, relu)
 
 
-def _kernel_vectors(y, bn, dtype, residual):
-    """The (mean, mul, bias) of ``bn`` for `ops.bn_epilogue.bn_epilogue`
-    where the call is the kernel's function, else None: eval mode outside
-    calibration and a data-parallel step; a bf16 ``y``, residual and
-    ``dtype``; no input that autograd follows; f32 statistics.  Cheap checks
-    first: a W32 forward makes 279 of these calls."""
-    if bn.training or _CALIBRATING or _SYNC is not None:
-        return None
-    if y.dtype != torch.bfloat16 or dtype != torch.bfloat16 or (
-            residual is not None and residual.dtype != torch.bfloat16):
-        return None
-    if torch.is_grad_enabled() and (y.requires_grad or bn.weight.requires_grad
-                                    or bn.bias.requires_grad
-                                    or (residual is not None and residual.requires_grad)):
-        return None
-    return _eval_vectors(bn)
+def runs_kernels(module: nn.Module, dtype: torch.dtype, x: torch.Tensor,
+                 residual: torch.Tensor | None = None) -> bool:
+    """Whether a call of ``module`` on ``x`` (and ``residual``) is the
+    kernels' function, the rule that picks every kernel of the port's
+    models: eval mode, outside `calibrating_batch_norm` and
+    `synced_batch_norm`; the compute ``dtype``, ``x`` and ``residual``
+    bf16; no input or parameter of ``module`` that autograd follows.
+    Where it holds, the model calls the kernel's op, which launches the
+    kernel for a CUDA tensor and runs its plain form for a CPU one; every
+    other call takes the plain model path.  Cheap checks first: a W32
+    forward makes 280 of these calls."""
+    if (module.training or _CALIBRATING or _SYNC is not None or dtype != torch.bfloat16
+            or x.dtype != torch.bfloat16
+            or (residual is not None and residual.dtype != torch.bfloat16)):
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not (x.requires_grad or (residual is not None and residual.requires_grad)
+                or any(p.requires_grad for p in module.parameters()))
 
 
 def _eval_vectors(bn: nn.BatchNorm2d):
     """(mean, mul, bias) of an eval-mode BatchNorm for the kernel, None where
     its statistics are not all f32; computed with the plain form's ops
-    (``rsqrt(var + eps) * γ``) once, and again only after its parameters or
-    buffers change (their version counters or storage move).  Inference
-    tensors keep no version counter: for them the vectors are computed at
-    every call."""
+    (``rsqrt(var + eps) * γ``), cached by `cached_by_tensors`."""
     params = (bn._buffers["running_mean"], bn._buffers["running_var"],
               bn._parameters["weight"], bn._parameters["bias"])
     if any(t.dtype != torch.float32 for t in params):
         return None
-    if any(t.is_inference() for t in params):
-        return _vectors(bn, params)
-    key = (bn.eps, *(t._version for t in params), *(t.data_ptr() for t in params))
-    cached = bn.__dict__.get("_epilogue_vectors")
+    return cached_by_tensors(bn, "_epilogue_vectors", params, lambda: _vectors(bn, params),
+                             extra=(bn.eps,))
+
+
+def cached_by_tensors(owner: nn.Module, name: str, tensors, make, extra=()):
+    """``make()``, cached on ``owner`` under ``name`` and made again only
+    after one of ``tensors`` was replaced (its storage moved: moved,
+    reloaded) or written in place (its version counter moved), or ``extra``
+    changed.  Inference tensors keep no version counter: where one of
+    ``tensors`` is one, ``make()`` runs at every call.  The kernels' folded
+    weights and BatchNorm vectors are kept this way."""
+    try:
+        key = (*extra, *((t.data_ptr(), t._version) for t in tensors))
+    except RuntimeError:  # an inference tensor's _version
+        return make()
+    cached = owner.__dict__.get(name)
     if cached is None or cached[0] != key:
-        cached = (key, _vectors(bn, params))
-        bn.__dict__["_epilogue_vectors"] = cached
+        cached = (key, make())
+        owner.__dict__[name] = cached
     return cached[1]
 
 

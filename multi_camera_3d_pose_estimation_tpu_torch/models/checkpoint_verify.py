@@ -159,8 +159,7 @@ def verify_checkpoint(path: str, family: str, cfg: dict | None = None, num_joint
     if family not in defaults:
         raise ValueError(f"unknown family '{family}' (expected hrnet|rtmpose|swin)")
     cfg = cfg or defaults[family]
-    model = new_model(family, cfg, device, input_size, num_joints, torch.float32,
-                      swin_attention=False)
+    model = new_model(family, cfg, device, input_size, num_joints, torch.float32)
     mirror, strip = _mirror(family, cfg, num_joints, input_size)
     report: dict[str, Any] = {"family": family, "path": path, "converted": False, "stages": [],
                               "ok": False}

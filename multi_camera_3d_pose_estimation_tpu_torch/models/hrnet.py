@@ -8,7 +8,9 @@ and the residual or fusion sum), the head's output cast to f32), and submodules 
 after the flax auto-names (``ConvBN_0``, ``Bottleneck_2``, ``HRModule_1``,
 ``FuseLayer_0``, ``head``, ...) so a flax variables tree maps onto the
 ``state_dict`` mechanically (`models.convert`).  Parameters are f32; the
-compute dtype is ``dtype`` (bf16 by default).
+compute dtype is ``dtype`` (bf16 by default).  Where the forward is the
+kernels' function (`models.batchnorm.runs_kernels`), stage 1 runs BN-folded
+through `ops.bottleneck` (on the card one Bottleneck kernel launch a block).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .batchnorm import BatchNorm, batch_norm_act
+from ..ops import bottleneck
+from .batchnorm import BatchNorm, batch_norm_act, cached_by_tensors, runs_kernels
 
 __all__ = ["HRNet", "HRNET_W32", "HRNET_W48", "ConvBN", "Bottleneck", "BasicBlock",
            "FuseLayer", "HRModule"]
@@ -175,10 +178,10 @@ class HRNet(nn.Module):
     """HRNet heatmap pose estimator.
 
     ``forward(x)``: x (B, 3, H, W) normalized float, any memory format ->
-    heatmaps (B, num_joints, H/4, W/4) f32.  ``fused_stage1``: an optional
-    ``fn(x) -> x`` that replaces the stage-1 Bottleneck chain in eval mode
-    (`ops.bottleneck.make_fused_stage1`); in train mode the four Bottleneck
-    modules run, as in the JAX package.  Built in eval mode.
+    heatmaps (B, num_joints, H/4, W/4) f32.  Stage 1 is the four Bottleneck
+    modules, or, where `runs_kernels` holds, the same blocks BN-folded
+    (`stage1_blocks`) through `ops.bottleneck.fused_stage1_chain`.  Built in
+    eval mode.
     """
 
     def __init__(self, num_joints: int = 17, cfg=None, dtype=torch.bfloat16,
@@ -193,6 +196,9 @@ class HRNet(nn.Module):
         for i in range(4):
             self.add_module(f"Bottleneck_{i}", Bottleneck(cin, 64, dtype))
             cin = 256
+        # The convs and BatchNorms whose tensors `stage1_blocks` folds.
+        self._stage1_leaves = [m for i in range(4) for m in getattr(self, f"Bottleneck_{i}")
+                               .modules() if not m._modules]
         self.ConvBN_2 = ConvBN(256, widths[0], 3, dtype=dtype)
         self.ConvBN_3 = ConvBN(256, widths[1], 3, 2, dtype=dtype)
         self.ConvBN_4 = ConvBN(widths[1], widths[2], 3, 2, dtype=dtype)
@@ -212,14 +218,26 @@ class HRNet(nn.Module):
         self.head = nn.Conv2d(widths[0], num_joints, 1)
         self.to(device=device, memory_format=torch.channels_last).eval()
 
-    def forward(self, x, fused_stage1=None):
+    def stage1_blocks(self) -> list[dict]:
+        """The stage-1 Bottlenecks BN-folded into the kernel's layout in the
+        compute dtype (`ops.bottleneck.prepare_block`), made again only
+        after a stage-1 parameter or buffer changed (`cached_by_tensors`)."""
+        tensors = [t for m in self._stage1_leaves
+                   for t in (*m._parameters.values(), *m._buffers.values()) if t is not None]
+        device = self.ConvBN_0.Conv_0.weight.device
+        return cached_by_tensors(self, "_stage1", tensors, lambda: [bottleneck.prepare_block(
+            bottleneck.fold_bottleneck_params(getattr(self, f"Bottleneck_{i}")), self.dtype,
+            device) for i in range(4)])
+
+    def forward(self, x):
         H, W = x.shape[-2:]
         if H % 32 or W % 32:
             raise ValueError(f"HRNet input height/width must be divisible by 32; got {(H, W)}")
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = self.ConvBN_1(self.ConvBN_0(x))
-        if fused_stage1 is not None and not self.training:
-            x = fused_stage1(x)
+        if runs_kernels(self, self.dtype, x):
+            nhwc = x.permute(0, 2, 3, 1).contiguous()  # no copy in channels_last
+            x = bottleneck.fused_stage1_chain(nhwc, self.stage1_blocks()).permute(0, 3, 1, 2)
         else:
             for i in range(4):
                 x = getattr(self, f"Bottleneck_{i}")(x)

@@ -236,26 +236,23 @@ _MODEL_FAMILIES = {
 
 
 def new_model(family: str, cfg, device="cuda", input_size=(192, 256), num_joints: int = 17,
-              dtype=torch.bfloat16, swin_attention="block") -> torch.nn.Module:
-    """A ``num_joints``-joint HRNet, SwinPose (its attention path
-    ``swin_attention``: "block", every block through the block kernels, or
-    False, the plain path training takes) or RTMPose (at ``input_size``
+              dtype=torch.bfloat16) -> torch.nn.Module:
+    """A ``num_joints``-joint HRNet, SwinPose or RTMPose (at ``input_size``
     (w, h)) computing in ``dtype``, on ``device``, with torch's default
     initialisation: weights to be loaded."""
     if family not in _MODEL_FAMILIES:
         raise ValueError(f"unknown family {family!r}")
-    extra = ({"input_size": input_size} if family == "rtmpose"
-             else {"use_pallas_attention": swin_attention} if family == "swin" else {})
+    extra = {"input_size": input_size} if family == "rtmpose" else {}
     return _MODEL_FAMILIES[family][0](num_joints, cfg=cfg, dtype=dtype, device=device, **extra)
 
 
 def build_model(family: str, cfg, device="cuda", variables=None, seed: int = 0,
                 input_size=(192, 256), num_joints: int = 17, checkpoint: str | None = None,
-                dtype=torch.bfloat16, swin_attention="block"):
+                dtype=torch.bfloat16):
     """`new_model`, with weights from ``checkpoint`` (`load_checkpoint`),
     from ``variables`` (a flax variables tree of numpy arrays) or drawn from
     seed ``seed``."""
-    model = new_model(family, cfg, device, input_size, num_joints, dtype, swin_attention)
+    model = new_model(family, cfg, device, input_size, num_joints, dtype)
     _, init, load = _MODEL_FAMILIES[family]
     if checkpoint:
         return load_checkpoint(model, checkpoint, family, cfg)
@@ -287,6 +284,7 @@ def load_checkpoint(model: torch.nn.Module, path: str, family: str,
 def build_estimator(name: str = "coco_hrnet_w32", checkpoint: str | None = None,
                     num_joints: int = 17, seed: int = 0, device="cuda", variables=None,
                     dtype=torch.bfloat16, use_pallas_attention=None, use_pallas_stage1=None,
+                    use_fused_stage1=None, use_fused_decode=None,
                     **estimator_kwargs) -> TopDownEstimator:
     """A ready `TopDownEstimator` by registry name, on ``device``, computing
     in ``dtype``.
@@ -295,26 +293,23 @@ def build_estimator(name: str = "coco_hrnet_w32", checkpoint: str | None = None,
       checkpoint of the model (`load_checkpoint`); ``variables``: a flax
       variables tree of numpy arrays; with neither, random weights from
       ``torch.Generator`` seed ``seed``.
-    - ``use_pallas_attention`` (the JAX keyword; Swin only, ``ValueError``
-      for another family): the Swin attention path, `build_model`'s
-      ``swin_attention`` ("block" when None).
-    - ``use_pallas_stage1`` (the JAX keyword): `TopDownEstimator`'s
-      ``use_fused_stage1`` (``ValueError`` where both are given and differ).
+    - ``use_pallas_attention``, ``use_pallas_stage1`` (the JAX package's
+      keywords), ``use_fused_stage1`` and ``use_fused_decode`` (the
+      benchmark configurations' ``estimator_kwargs``) are accepted and
+      select nothing: the models and the decode pick their kernels by one
+      rule (`models.batchnorm.runs_kernels`).  ``use_pallas_attention`` on
+      a model other than Swin raises ``ValueError``, as in JAX.
     - ``estimator_kwargs`` pass to `TopDownEstimator` (e.g.
-      ``use_fused_stage1=True``, ``use_fused_decode=True``,
-      ``flip_test=True``); the kernels are off unless asked for, as in the
-      JAX package.
+      ``flip_test=True``, ``decode_mode="dark"``).
     """
     spec = MODEL_REGISTRY[resolve_model_name(name)]
     if use_pallas_attention is not None and spec["family"] != "swin":
         raise ValueError(f"use_pallas_attention applies to the swin family only, not "
                          f"'{name}' ({spec['family']})")
     model = build_model(spec["family"], spec["cfg"], device, variables, seed,
-                        spec["input_size"], num_joints, checkpoint, dtype,
-                        "block" if use_pallas_attention is None else use_pallas_attention)
+                        spec["input_size"], num_joints, checkpoint, dtype)
     return TopDownEstimator(model, input_size=spec["input_size"], decode=spec["decode"],
-                            device=device, use_pallas_stage1=use_pallas_stage1,
-                            **estimator_kwargs)
+                            device=device, **estimator_kwargs)
 
 
 # name -> (family, cfg): the JAX registry's detector names.

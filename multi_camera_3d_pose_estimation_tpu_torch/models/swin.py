@@ -18,18 +18,17 @@ Parameters are f32; the compute dtype is ``dtype`` (bf16 by default):
 - `Deconv` is ``conv_transpose2d`` (k4 s2 p1); the head BatchNorm
   (`models.batchnorm`) computes in f32 and casts to ``dtype``.
 
-``use_pallas_attention`` picks the attention path with the JAX values:
-``"block"`` (default) runs every SwinBlock as `ops.swin_block.fused_swin_block`
-(the swin_gemm and window-attention kernels), with each stage's tokens kept
-in window order between blocks and moved by one `window_roll_perm` gather;
-``True``/``"packed"`` and ``"loop"`` run only the attention core through the
-window-attention kernel (`packed_window_attention` / `fused_window_attention`);
-``False`` runs the plain einsum path.  On a CPU tensor every choice runs the
-plain versions.  The patch-embed conv, PatchMerging's reduction, the
-deconvolutions and the final 1×1 conv stay cuDNN/`torch.matmul`, as the
-JAX package leaves them to XLA.
+Where the forward is the kernels' function (`models.batchnorm.runs_kernels`:
+eval-mode bf16 inference that autograd does not follow) every SwinBlock
+runs as `ops.swin_block.fused_swin_block` (the swin_gemm and
+window-attention kernels on the card, their plain versions on the CPU), with
+each stage's tokens kept in window order between blocks and moved by one
+`window_roll_perm` gather; every other call takes the plain einsum path.
+The patch-embed conv, PatchMerging's reduction, the deconvolutions and the
+final 1×1 conv stay cuDNN/`torch.matmul`, as the JAX package leaves them
+to XLA.
 
-In ``"block"`` mode the environment variable ``MC3D_SWIN_FIXED``, read at
+On the kernel path the environment variable ``MC3D_SWIN_FIXED``, read at
 every forward with the JAX parsing, picks the layout of the multi-block
 stages: ``"0"`` (the default) the chained window layout above, ``"1"``
 every such stage in fixed order, any other value a comma list of channel
@@ -55,13 +54,12 @@ from ..ops import swin_block as swin_ops
 from ..ops.swin_block import prepare_swin_block
 from ..ops.swin_geometry import (device_table, fixed_partition, fixed_reverse, padded_dims,
                                  partition_windows, rel_position_index, reverse_windows,
-                                 shift_mask, shift_regions, window_roll_perm)
-from ..ops.window_attention import (fused_window_attention, packed_window_attention,
-                                    window_attention_plain)
-from .batchnorm import BatchNorm, batch_norm_act
+                                 shift_mask, window_roll_perm)
+from ..ops.window_attention import window_attention_plain
+from .batchnorm import BatchNorm, batch_norm_act, cached_by_tensors, runs_kernels
 
 __all__ = ["SwinPose", "SwinTransformer", "SwinBlock", "WindowAttention", "PatchMerging",
-           "Deconv", "SWIN_B", "SWIN_L", "SWIN_T", "ATTENTION_MODES"]
+           "Deconv", "SWIN_B", "SWIN_L", "SWIN_T"]
 
 # MMPose td-hm_swin-{b,l}-p4-w7_coco-256x192 backbones + HeatmapHead.
 SWIN_B = {"embed": 128, "depths": (2, 2, 18, 2), "heads": (4, 8, 16, 32),
@@ -70,8 +68,6 @@ SWIN_L = {"embed": 192, "depths": (2, 2, 18, 2), "heads": (6, 12, 24, 48),
           "window": 7, "mlp_ratio": 4, "deconv": (256, 256, 256)}
 SWIN_T = {"embed": 96, "depths": (2, 2, 6, 2), "heads": (3, 6, 12, 24),
           "window": 7, "mlp_ratio": 4, "deconv": (256, 256, 256)}
-
-ATTENTION_MODES = ("block", True, "packed", "loop", False)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -112,7 +108,7 @@ class WindowAttention(nn.Module):
                            dtype=torch.long)
         return self.bias_table.float()[idx.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1)
 
-    def forward(self, x: torch.Tensor, mode=False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
         win, shift, dev = self.window, self.shift, x.device
         Hp, Wp = padded_dims(H, W, win)
@@ -122,14 +118,9 @@ class WindowAttention(nn.Module):
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
         qkv = dense(partition_windows(x, win), self.qkv, self.dtype).contiguous()
         bias = self.relative_bias().contiguous()
-        if mode in (True, "packed"):
-            regions = shift_regions(Hp, Wp, win, shift) if shift else None
-            out = packed_window_attention(qkv, bias, regions, self.heads)
-        else:
-            mask = (device_table(shift_mask, Hp, Wp, win, shift, device=dev,
-                                 dtype=torch.float32) if shift else None)
-            attend = fused_window_attention if mode == "loop" else window_attention_plain
-            out = attend(qkv, bias, mask, self.heads)
+        mask = (device_table(shift_mask, Hp, Wp, win, shift, device=dev, dtype=torch.float32)
+                if shift else None)
+        out = window_attention_plain(qkv, bias, mask, self.heads)
         out = reverse_windows(dense(out, self.proj, self.dtype), win, B, Hp, Wp)
         if shift:
             out = torch.roll(out, (shift, shift), dims=(1, 2))
@@ -149,33 +140,28 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.ffn_fc1 = nn.Linear(dim, mlp_ratio * dim)
         self.ffn_fc2 = nn.Linear(mlp_ratio * dim, dim)
-        self._prepared, self._prepared_key = None, None
 
     def prepared(self) -> dict:
-        """`prepare_swin_block` of this block in its compute dtype: made at
-        the first call and again only after a parameter was replaced (moved,
-        reloaded) or written in place (its version counter moved)."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._prepared_key != key:
-            self._prepared = prepare_swin_block(self, self.dtype)
-            self._prepared_key = key
-        return self._prepared
+        """`prepare_swin_block` of this block in its compute dtype, made
+        again only after a parameter changed (`cached_by_tensors`)."""
+        return cached_by_tensors(self, "_prepared", self.parameters(),
+                                 lambda: prepare_swin_block(self, self.dtype))
 
-    def forward(self, x: torch.Tensor, mode=False, pre_part=None, emit_part: bool = False):
-        """``mode == "block"``: the whole block through `fused_swin_block`;
-        ``pre_part=(B, H, W)`` takes this block's window-order tokens and
-        ``emit_part`` returns them (pads zeroed), as in the JAX package."""
-        if mode == "block":
-            return swin_ops.fused_swin_block(
-                x.to(self.dtype), self.prepared(), heads=self.heads,
-                window=self.window, shift=self.shift, mlp_ratio=self.mlp_ratio,
-                pre_partitioned=pre_part, emit_partitioned=emit_part)
-        if pre_part is not None or emit_part:
-            raise ValueError("the chained window layout needs mode='block'")
-        y = x + self.attn(layer_norm(x, self.norm1, self.dtype), mode)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain block on a (B, H, W, C) map."""
+        y = x + self.attn(layer_norm(x, self.norm1, self.dtype))
         h = dense(layer_norm(y, self.norm2, self.dtype), self.ffn_fc1, self.dtype)
         h = F.gelu(h.float()).to(self.dtype)
         return y + dense(h, self.ffn_fc2, self.dtype)
+
+    def fused(self, x: torch.Tensor, pre_part=None, emit_part: bool = False) -> torch.Tensor:
+        """The whole block through `ops.swin_block.fused_swin_block`;
+        ``pre_part=(B, H, W)`` takes this block's window-order tokens and
+        ``emit_part`` returns them (pads zeroed), as in the JAX package."""
+        return swin_ops.fused_swin_block(
+            x.to(self.dtype), self.prepared(), heads=self.heads, window=self.window,
+            shift=self.shift, mlp_ratio=self.mlp_ratio, pre_partitioned=pre_part,
+            emit_partitioned=emit_part)
 
 
 class PatchMerging(nn.Module):
@@ -207,12 +193,10 @@ class SwinTransformer(nn.Module):
     """Swin backbone: (B, H, W, 3) → the LN'd 1/32 (NHWC) feature map of the
     last stage (out_indices=(3,), as the MMPose pose configs)."""
 
-    def __init__(self, cfg=None, dtype=torch.bfloat16, use_pallas_attention="block"):
+    def __init__(self, cfg=None, dtype=torch.bfloat16):
         super().__init__()
         cfg = cfg or SWIN_B
-        if use_pallas_attention not in ATTENTION_MODES:
-            raise ValueError(f"use_pallas_attention must be one of {ATTENTION_MODES}")
-        self.cfg, self.dtype, self.mode = cfg, dtype, use_pallas_attention
+        self.cfg, self.dtype = cfg, dtype
         embed, win, ratio = cfg["embed"], cfg["window"], cfg.get("mlp_ratio", 4)
         self.patch_embed_projection = nn.Conv2d(3, embed, 4, 4)
         self.patch_embed_norm = nn.LayerNorm(embed, eps=1e-5)
@@ -236,10 +220,14 @@ class SwinTransformer(nn.Module):
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt), None, 4)
         x = (y.permute(0, 2, 3, 1) + conv.bias.to(dt)).contiguous()
         x = layer_norm(x, self.patch_embed_norm, dt)
+        kernels = runs_kernels(self, dt, x)
         depths: Sequence[int] = self.cfg["depths"]
         for i, depth in enumerate(depths):
             blocks = [getattr(self, f"stage_{i}_block_{j}") for j in range(depth)]
-            if self.mode == "block" and depth > 1 and fixed_layout(x.shape[-1]):
+            if not kernels:
+                for blk in blocks:
+                    x = blk(x)
+            elif depth > 1 and fixed_layout(x.shape[-1]):
                 # Fixed order: the stage's tokens stay in shift-0 window order.
                 B, Hc, Wc, _ = x.shape
                 b0 = blocks[0]
@@ -248,20 +236,19 @@ class SwinTransformer(nn.Module):
                     heads=b0.heads, window=win, shifts=[b.shift for b in blocks],
                     mlp_ratio=b0.mlp_ratio, geom=(B, Hc, Wc))
                 x = fixed_reverse(xw, B, Hc, Wc, win)
-            elif self.mode == "block" and depth > 1:
+            elif depth > 1:
                 # Chained window layout: tokens stay in window order between
                 # the blocks of a stage; one gather per transition.
                 B, Hc, Wc, C = x.shape
-                xw = blocks[0](x, "block", emit_part=True)
+                xw = blocks[0].fused(x, emit_part=True)
                 for j in range(1, depth):
                     perm = device_table(window_roll_perm, Hc, Wc, win, blocks[j - 1].shift,
                                         blocks[j].shift, device=x.device, dtype=torch.long)
                     xw = xw.view(B, -1, C).index_select(1, perm).view(-1, C)
-                    xw = blocks[j](xw, "block", pre_part=(B, Hc, Wc), emit_part=j < depth - 1)
+                    xw = blocks[j].fused(xw, pre_part=(B, Hc, Wc), emit_part=j < depth - 1)
                 x = xw
             else:
-                for blk in blocks:
-                    x = blk(x, self.mode)
+                x = blocks[0].fused(x)
             if i < len(depths) - 1:
                 x = getattr(self, f"downsample_{i}")(x)
         return layer_norm(x, self.out_norm, dt)
@@ -288,12 +275,11 @@ class SwinPose(nn.Module):
     then a 1×1 conv to K.
     """
 
-    def __init__(self, num_joints: int = 17, cfg=None, dtype=torch.bfloat16,
-                 use_pallas_attention="block", device="cuda"):
+    def __init__(self, num_joints: int = 17, cfg=None, dtype=torch.bfloat16, device="cuda"):
         super().__init__()
         cfg = cfg or SWIN_B
         self.cfg, self.num_joints, self.dtype = cfg, num_joints, dtype
-        self.backbone = SwinTransformer(cfg, dtype, use_pallas_attention)
+        self.backbone = SwinTransformer(cfg, dtype)
         ch = cfg["embed"] * 2 ** (len(cfg["depths"]) - 1)
         for d, out in enumerate(cfg["deconv"]):
             self.add_module(f"deconv_{d}", Deconv(ch, out))

@@ -9,7 +9,10 @@ keypoints (B, K, 3) = (x_px, y_px, score), gaussians (B, K, 6) =
 [mean_x, mean_y, var_x, cov_xy, cov_xy, var_y] in image pixels.
 
 The crop (box fit, antialiased resample, normalize) is `ops.crop_resample`:
-one CUDA kernel on the card, `crop_frames` + the normalize on the CPU.
+one CUDA kernel on the card, `crop_frames` + the normalize on the CPU.  The
+default heatmap decode is `ops.fused_heatmap_decode`: one CUDA kernel on the
+card, its plain form on the CPU.  The models pick their own kernels
+(`models.batchnorm.runs_kernels`).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from ..ops.crop_resample import (IMAGENET_MEAN, IMAGENET_STD, center_scale_from_bbox,
                                  crop_frames, crop_resample)
 from ..ops.fused_decode import fused_heatmap_decode
-from ..ops.heatmap_decode import heatmap_argmax_decode, heatmap_dark_decode
+from ..ops.heatmap_decode import heatmap_dark_decode
 from ..ops.moments import heatmap_moments
 from ..ops.simcc import simcc_decode
 from ..utils.profiling import span
@@ -49,36 +52,21 @@ class TopDownEstimator:
     - ``model``: the port's `HRNet` or `SwinPose` (``decode="heatmap"``) or
       `RTMPose` (``decode="simcc"``), weights loaded, on ``device``.
     - ``input_size``: (width, height) of the crop fed to the model.
-    - ``use_fused_decode``: decode through the CUDA kernel
-      (`ops.fused_heatmap_decode`) instead of `heatmap_argmax_decode` +
-      `heatmap_moments`; heatmap decode only, ignored for SimCC.
-    - ``use_fused_stage1``: run HRNet's stage 1 through the Bottleneck
-      kernel (`ops.make_fused_stage1`).  A `SwinPose` picks its kernels
-      itself (``use_pallas_attention``).  ``use_pallas_stage1`` is its JAX
-      name; giving both with different values raises ``ValueError``.
     - ``flip_test``: flip-TTA: the mirrored crops through the model again,
       their heatmaps mirrored back, left/right joints swapped (the
       ``connectivity_type`` swap table), shifted one heatmap pixel right
       when ``flip_shift``, and averaged with the direct ones; for SimCC the
       two softmaxes are averaged (x bins reversed, joints swapped, no
       shift) and decoded as ``log(p + 1e-12)``.
-    - ``decode_mode``: "default" (argmax + ±0.25 shift) or "dark"
-      (`ops.heatmap_dark_decode`); applies to the unfused decode only, as in
-      the JAX package: with ``use_fused_decode`` the kernel decodes.
+    - ``decode_mode``: "default", argmax + ±0.25 shift and the moments in
+      one pass (`ops.fused_heatmap_decode`), or "dark"
+      (`ops.heatmap_dark_decode` + `ops.heatmap_moments`).
     """
 
     def __init__(self, model, input_size=(192, 256), decode: str = "heatmap",
                  heatmap_threshold: float = 0.01, bbox_padding: float = 1.25,
-                 use_fused_decode: bool = False, use_fused_stage1: bool | None = None,
                  flip_test: bool = False, flip_shift: bool = True, decode_mode: str = "default",
-                 connectivity_type: str = "coco", device="cuda",
-                 use_pallas_stage1: bool | None = None):
-        if (use_fused_stage1 is not None and use_pallas_stage1 is not None
-                and bool(use_fused_stage1) != bool(use_pallas_stage1)):
-            raise ValueError(f"use_fused_stage1={use_fused_stage1} and its JAX name "
-                             f"use_pallas_stage1={use_pallas_stage1} disagree")
-        if use_fused_stage1 is None:
-            use_fused_stage1 = bool(use_pallas_stage1)
+                 connectivity_type: str = "coco", device="cuda"):
         if decode not in ("heatmap", "simcc"):
             raise ValueError(f"unknown decode '{decode}'")
         if decode_mode not in ("default", "dark"):
@@ -91,7 +79,6 @@ class TopDownEstimator:
         self.decode = decode
         self.heatmap_threshold = float(heatmap_threshold)
         self.bbox_padding = float(bbox_padding)
-        self.use_fused_decode = bool(use_fused_decode) and decode == "heatmap"
         self.flip_shift = bool(flip_shift)
         self.decode_mode = decode_mode
         self.flip_perm = None  # the joint permutation when flip-TTA is on
@@ -104,13 +91,6 @@ class TopDownEstimator:
                 raise ValueError(f"flip_test needs the '{connectivity_type}' swap table "
                                  f"({len(perm)} joints) to match the model ({n_joints} joints)")
             self.flip_perm = torch.as_tensor(perm, device=self.device)
-        self.fused_stage1 = None
-        if use_fused_stage1:
-            if self.family != "hrnet":
-                raise ValueError("use_fused_stage1 applies to HRNet only")
-            from ..ops.bottleneck import make_fused_stage1
-
-            self.fused_stage1 = make_fused_stage1(self.model)
 
     @torch.inference_mode()
     def predict_batch(self, frames, bboxes=None):
@@ -152,14 +132,11 @@ def _predict(est: TopDownEstimator, frames: torch.Tensor, bboxes: torch.Tensor) 
                 heat_f = torch.cat([heat_f[..., :1], heat_f[..., :-1]], dim=-1)
             heat = 0.5 * (heat + heat_f)
     with span("mc3d.pipeline.decode", device=on_card):
-        if est.use_fused_decode:
-            moments, xy_hm, score = fused_heatmap_decode(heat, threshold=est.heatmap_threshold)
-        else:
-            if est.decode_mode == "dark":
-                xy_hm, score = heatmap_dark_decode(heat)
-            else:
-                xy_hm, score = heatmap_argmax_decode(heat)
+        if est.decode_mode == "dark":
+            xy_hm, score = heatmap_dark_decode(heat)
             moments = heatmap_moments(heat, threshold=est.heatmap_threshold)
+        else:
+            moments, xy_hm, score = fused_heatmap_decode(heat, threshold=est.heatmap_threshold)
         stride = in_h / heat.shape[-2]
         return _pushforward(xy_hm * stride, score, moments[..., :2] * stride,
                             moments[..., 2:] * stride * stride, scale, offset)
@@ -203,7 +180,7 @@ def _heatmaps(est: TopDownEstimator, crops: torch.Tensor) -> torch.Tensor:
     if est.family == "swin":
         return est.model(crops)  # SwinPose takes NHWC crops
     # (B, in_h, in_w, 3) viewed as NCHW is channels_last: no copy.
-    return est.model(crops.permute(0, 3, 1, 2), fused_stage1=est.fused_stage1)
+    return est.model(crops.permute(0, 3, 1, 2))
 
 
 def _pushforward(xy_crop, score, mean_crop, cov_crop, scale, offset) -> dict:

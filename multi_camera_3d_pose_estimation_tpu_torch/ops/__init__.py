@@ -1,6 +1,6 @@
 """Batched geometry, decode and kernel ops of the port (torch)."""
 
-from .bottleneck import fused_bottleneck_block, fused_stage1_chain, make_fused_stage1
+from .bottleneck import fused_bottleneck_block, fused_stage1_chain
 from .fused_decode import fused_heatmap_decode
 from .geometry import (distort_normalized, make_homogeneous_rep_matrix, project_points,
                        projection_matrix, rodrigues_matrix, rodrigues_vector, rotation_conversion)
@@ -24,7 +24,6 @@ __all__ = [
     "heatmap_argmax_decode",
     "heatmap_dark_decode",
     "heatmap_moments",
-    "make_fused_stage1",
     "make_homogeneous_rep_matrix",
     "normalize_pixels",
     "packed_window_attention",

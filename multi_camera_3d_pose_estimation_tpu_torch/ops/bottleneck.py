@@ -20,7 +20,7 @@ points.  Block 0's expand and downsample are one product over K = 64 + cin
 the wrapper runs it for a CPU tensor, and only there.
 
 Layout: activations are NHWC, (B, H, W, C) contiguous; an NCHW tensor in
-``torch.channels_last`` is that layout without a copy (`make_fused_stage1`).
+``torch.channels_last`` is that layout without a copy (`models.hrnet.HRNet`).
 Weights are kept in the kernel's layout, output channel first:
 ``w1`` (mid, cin), ``w2`` (mid, 9·mid) with column (3·kh + kw)·mid + c,
 ``w3`` (cout, mid), ``wd`` (cout, cin); biases f32.
@@ -43,7 +43,6 @@ __all__ = [
     "fused_bottleneck_block",
     "fused_stage1_chain",
     "stage1_chain_plain",
-    "make_fused_stage1",
 ]
 
 MID = 64  # the kernel's Bottleneck width (HRNet stage 1)
@@ -194,29 +193,3 @@ def stage1_chain_plain(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
         x = bottleneck_block_plain(x, p)
     return x
 
-
-def make_fused_stage1(model, n_blocks: int = 4):
-    """Build ``fn(x) -> x`` running an HRNet's stage 1 through the kernel.
-
-    ``model``: the port's `HRNet`.  BN is folded once, into weights of the
-    model's compute dtype on its device.  ``fn`` takes and returns NCHW
-    tensors; in ``torch.channels_last`` the kernel reads and writes them
-    without a copy.  A block structure other than downsample-then-identity
-    runs block by block.
-    """
-    device = next(model.parameters()).device
-    blocks = [prepare_block(fold_bottleneck_params(getattr(model, f"Bottleneck_{i}")),
-                            model.dtype, device) for i in range(n_blocks)]
-    chain_ok = "wd" in blocks[0] and not any("wd" in p for p in blocks[1:])
-
-    def fn(x):
-        nhwc = x.permute(0, 2, 3, 1).contiguous()
-        if chain_ok:
-            nhwc = fused_stage1_chain(nhwc, blocks)
-        else:
-            for p in blocks:
-                nhwc = fused_bottleneck_block(nhwc, p)
-        return nhwc.permute(0, 3, 1, 2)
-
-    fn.blocks = blocks
-    return fn

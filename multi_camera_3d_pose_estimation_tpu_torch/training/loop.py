@@ -73,12 +73,14 @@ def apply_model(model: torch.nn.Module, images: torch.Tensor):
 
 
 def build_train_model(model_name: str, dtype=torch.float32, seed: int = 0, device="cuda"):
-    """A registry model set up for training: HRNet, Swin (plain attention,
-    as the JAX package trains it) or RTMPose in ``dtype``, random weights
-    from ``torch.Generator`` seed ``seed``.  Returns (model, spec)."""
+    """A registry model set up for training: HRNet, Swin or RTMPose in
+    ``dtype``, random weights from ``torch.Generator`` seed ``seed``.  Train
+    mode and autograd take every model's plain path (Swin's plain attention,
+    as the JAX package trains it: `models.batchnorm.runs_kernels`).  Returns
+    (model, spec)."""
     spec = MODEL_REGISTRY[resolve_model_name(model_name)]
     model = build_model(spec["family"], spec["cfg"], device, seed=seed,
-                        input_size=spec["input_size"], dtype=dtype, swin_attention=False)
+                        input_size=spec["input_size"], dtype=dtype)
     return model, spec
 
 

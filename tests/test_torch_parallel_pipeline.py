@@ -142,8 +142,7 @@ def _rank_main(rank, world, address, out_dir):
     shape = (8, C, 64, 96, 3)
     frames = np.random.default_rng(3).integers(0, 256, shape, dtype=np.uint8)
     pipes = {m: build_pipeline(SMALL, INPUT, shape, device="cpu", seed=0,
-                               detector="test_rtmdet_micro", detector_select="consistent",
-                               use_fused_decode=False)
+                               detector="test_rtmdet_micro", detector_select="consistent")
              for m in ("mesh", "none")}
     pipes["mesh"] = ShardedPosePipeline(pipes["mesh"].estimator, pipes["mesh"].cam_stack,
                                         mesh=mesh, detector=pipes["mesh"].detector, device="cpu")

@@ -97,7 +97,7 @@ def test_plain_form_is_the_composed_chain(C, H, W, upsample, res, relu):
 def _takes(y, bn, dtype, residual):
     """Whether the routing gives the call to the wrapper (on the card, the
     kernel)."""
-    return bnm._kernel_vectors(y, bn, dtype, residual) is not None
+    return bnm.runs_kernels(bn, dtype, y, residual) and bnm._eval_vectors(bn) is not None
 
 
 def test_routing_takes_eval_bf16_dense_maps():
@@ -412,19 +412,17 @@ def _forced_plain(monkeypatch):
 @cuda
 def test_hrnet_w32_forward_matches_plain(card, monkeypatch):
     from multi_camera_3d_pose_estimation_tpu_torch.models.registry import init_hrnet_
-    from multi_camera_3d_pose_estimation_tpu_torch.ops.bottleneck import make_fused_stage1
 
     model = HRNet(17, HRNET_W32, BF16, card)
     _randomize_bn_(init_hrnet_(model, torch.Generator().manual_seed(0)), seed=1)
-    stage1 = make_fused_stage1(model)
     x = torch.randn(16, 3, 256, 192, generator=torch.Generator().manual_seed(2)).to(card)
     with torch.inference_mode():
         launches, plain = be.bn_epilogue.launches, be.bn_epilogue.plain
-        got = model(x, fused_stage1=stage1)
+        got = model(x)
         assert be.bn_epilogue.launches - launches == 279
         assert be.bn_epilogue.plain == plain
         _forced_plain(monkeypatch)
-        want = model(x, fused_stage1=stage1)
+        want = model(x)
     assert torch.equal(got, want)
 
 
@@ -433,7 +431,7 @@ def test_swin_b_head_matches_plain(card, monkeypatch):
     from multi_camera_3d_pose_estimation_tpu_torch.models.registry import init_swin_
     from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_B, SwinPose
 
-    model = SwinPose(17, SWIN_B, BF16, "block", card)
+    model = SwinPose(17, SWIN_B, BF16, card)
     _randomize_bn_(init_swin_(model, torch.Generator().manual_seed(0)), seed=1)
     x = torch.randn(8, 256, 192, 3, generator=torch.Generator().manual_seed(2)).to(card)
     with torch.inference_mode():

@@ -5,9 +5,10 @@
 with the same keywords on the same JAX ``.npz`` checkpoint (seeded by
 ``tests/_torch_port_util.py``'s ``random_variables``), and the float32
 forwards agree within 1e-4 (the boxes at atol 2e-3, as in
-``tests/test_torch_parity.py``); with ``use_pallas_stage1`` the stage-1
-chain runs through each package's kernel path (JAX's Pallas kernel in
-interpret mode, the port's plain version on the CPU).
+``tests/test_torch_parity.py``); with ``use_pallas_stage1`` the JAX stage-1
+chain runs through its Pallas kernel in interpret mode, while the port's
+float32 model takes its plain path (the keyword selects nothing there:
+its models pick their kernels by one rule, `runs_kernels`).
 ``use_pallas_attention`` on a non-Swin model raises ``ValueError`` in both,
 and a CenterNet ``.pth`` does too (neither package converts CenterNet).
 The JAX side's variables come from ``jax.eval_shape`` (`fast_flax_init`):
@@ -62,17 +63,16 @@ def test_build_estimator_keywords_match_jax(name, kw, tmp_path, fast_init):
     assert p.model.dtype == torch.float32
     x = np.random.default_rng(0).uniform(-1, 1, (2, h, w, 3)).astype(np.float32)
     if name == "test_swin_128":
-        assert p.model.backbone.mode is False
         ref = jax.jit(j.model.apply)(j.variables, jnp.asarray(x))
         with torch.no_grad():
             out = p.model(torch.from_numpy(x))
     else:
         fused = kw.get("use_pallas_stage1", False)
-        assert (j._fused_stage1 is not None) == (p.fused_stage1 is not None) == fused
+        assert (j._fused_stage1 is not None) == fused
         extra = {"fused_stage1": j._fused_stage1} if fused else {}
         ref = jax.jit(partial(j.model.apply, **extra))(j.variables, jnp.asarray(x))
         with torch.no_grad():
-            out = p.model(torch.from_numpy(x).permute(0, 3, 1, 2), fused_stage1=p.fused_stage1)
+            out = p.model(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
                                rtol=1e-4, atol=1e-4)
 
@@ -114,30 +114,3 @@ def test_centernet_pth_raises_in_both(tmp_path, fast_init):
                                                                              **k)):
         with pytest.raises(ValueError, match="not implemented for centernet"):
             build("test_centernet_w8", checkpoint=str(path))
-
-
-def test_topdown_estimator_takes_the_jax_stage1_keyword():
-    """``TopDownEstimator(use_pallas_stage1=)`` is ``use_fused_stage1=`` by its
-    JAX name (JAX ``models/topdown.py``): the same stage-1 chain and the same
-    keypoints; the two names given with different values raise, here and
-    through ``build_estimator``."""
-    from multi_camera_3d_pose_estimation_tpu_torch.models.topdown import TopDownEstimator
-
-    est = registry.build_estimator("test_tiny", device="cpu", seed=1)
-    frames = np.random.default_rng(2).integers(0, 256, (2, 80, 64, 3), dtype=np.uint8)
-    out = {}
-    for kw in ({"use_pallas_stage1": True}, {"use_fused_stage1": True},
-               {"use_fused_stage1": True, "use_pallas_stage1": True}, {}):
-        e = TopDownEstimator(est.model, input_size=est.input_size, device="cpu", **kw)
-        assert (e.fused_stage1 is not None) == bool(kw)
-        out[tuple(kw)] = e.predict_batch(frames)
-    fused = out[("use_pallas_stage1",)]
-    for k in fused:
-        assert torch.equal(fused[k], out[("use_fused_stage1",)][k])
-        assert torch.equal(fused[k], out[("use_fused_stage1", "use_pallas_stage1")][k])
-    with pytest.raises(ValueError, match="use_pallas_stage1"):
-        TopDownEstimator(est.model, input_size=est.input_size, device="cpu",
-                         use_fused_stage1=False, use_pallas_stage1=True)
-    with pytest.raises(ValueError, match="use_pallas_stage1"):
-        registry.build_estimator("test_tiny", device="cpu", use_pallas_stage1=True,
-                                 use_fused_stage1=False)

@@ -68,8 +68,7 @@ def test_drill_passes_per_stage(family, tmp_path):
     assert all(np.isfinite(s["rel"]) and s["rel"] <= pcv_verify._REL_TOL
                for s in report["stages"]), text
     model = convert.TORCH_LOADERS[family](
-        pcv_verify.new_model(family, cfg, "cpu", (32, 64), 17, torch.float32,
-                             swin_attention=False), path, cfg)
+        pcv_verify.new_model(family, cfg, "cpu", (32, 64), 17, torch.float32), path, cfg)
     assert report["n_values"] == sum(p.numel() for p in model.parameters()) + sum(
         b.numel() for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var")))
     assert "VERIFY: PASS" in text

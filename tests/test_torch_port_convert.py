@@ -70,8 +70,7 @@ def _jax_model(family, cfg):
 
 def _port_model(family, cfg):
     if family in ("hrnet", "swin", "rtmpose"):
-        return registry.new_model(family, cfg, "cpu", (32, 64), 17, torch.float32,
-                                  swin_attention=False)
+        return registry.new_model(family, cfg, "cpu", (32, 64), 17, torch.float32)
     return (YOLOX if family == "yolox" else RTMDet)(**cfg, dtype=torch.float32, device="cpu")
 
 
@@ -247,8 +246,8 @@ def test_convert_out_equals_the_jax_cli(name, family, tmp_path, monkeypatch, cap
     # The file loads back through the builder.
     est = registry.build_estimator(name, checkpoint=str(tmp_path / "port.npz"), device="cpu")
     want = convert.TORCH_LOADERS[family](
-        registry.new_model(family, spec["cfg"], "cpu", (w, h), 17, torch.float32,
-                           swin_attention=False), pth).state_dict()
+        registry.new_model(family, spec["cfg"], "cpu", (w, h), 17, torch.float32),
+        pth).state_dict()
     assert all(torch.equal(est.model.state_dict()[k], want[k]) for k in want)
 
 

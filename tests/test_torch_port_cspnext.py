@@ -190,5 +190,5 @@ def test_simcc_decode_matches_jax(refine):
 def test_rtmpose_names_build():
     for name, n_bins in (("coco_rtmpose-t", (384, 512)), ("coco_rtmpose-m", (512, 512))):
         est = registry.build_estimator(name, device="cpu", seed=1)
-        assert est.family == "rtmpose" and est.decode == "simcc" and not est.use_fused_decode
+        assert est.family == "rtmpose" and est.decode == "simcc"
         assert (est.model.cls_x.out_features, est.model.cls_y.out_features) == n_bins

@@ -721,10 +721,9 @@ def test_stage_blocks_stops_and_raises(card):
 
 def test_pth_checkpoint_on_the_card(card, tmp_path):
     """A small HRNet ``.pth`` (the port's MMPose mirror, mmengine prefixes)
-    built on the card with the stage-1 and decode kernels on (the JAX
-    keyword ``use_pallas_stage1``) gives the same keypoints bit for bit as
-    the ``.npz`` that ``convert --out`` writes from it, both kernels
-    launched."""
+    built on the card gives the same keypoints bit for bit as the ``.npz``
+    that ``convert --out`` writes from it, the stage-1 and decode kernels
+    launched (bf16 inference runs them, `runs_kernels`)."""
     import numpy as np
 
     from multi_camera_3d_pose_estimation_tpu_torch.cli import convert as convert_cli
@@ -742,8 +741,7 @@ def test_pth_checkpoint_on_the_card(card, tmp_path):
                                                                 dtype=np.uint8)).to(card)
     out = {}
     for ckpt in (pth, npz):
-        est = registry.build_estimator("test_tiny", checkpoint=ckpt, device=card,
-                                       use_pallas_stage1=True, use_fused_decode=True)
+        est = registry.build_estimator("test_tiny", checkpoint=ckpt, device=card)
         bn.fused_bottleneck_block.launches = fd.heatmap_decode_raw.launches = 0
         out[ckpt] = {k: v.cpu() for k, v in est.predict_batch(frames).items()}
         assert bn.fused_bottleneck_block.launches > 0 and fd.heatmap_decode_raw.launches == 1

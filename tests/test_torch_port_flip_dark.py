@@ -94,7 +94,7 @@ class _TwoMaps:
     def apply(self, variables, crops, **kw):  # the JAX side: (B, h, w, K)
         return jnp.asarray(np.moveaxis(self._next(), 1, -1))
 
-    def __call__(self, crops, fused_stage1=None):  # the port: (B, K, h, w)
+    def __call__(self, crops):  # the port: (B, K, h, w)
         return torch.from_numpy(self._next())
 
     def to(self, device):
@@ -107,17 +107,17 @@ class _TwoMaps:
 BOXES = np.float32([[0, 0, 80, 96], [8, 4, 72, 92], [-10, 20, 60, 110], [30, 0, 95, 70]])
 
 
-@pytest.mark.parametrize("flip_shift,decode_mode,fused", [(True, "default", False),
-                                                          (False, "default", False),
-                                                          (True, "dark", False),
-                                                          (True, "dark", True)])
-def test_flip_tta_on_given_maps_matches_jax(flip_shift, decode_mode, fused):
-    """With the fused decode on, ``decode_mode`` is ignored on both sides."""
+@pytest.mark.parametrize("flip_shift", [True, False])
+@pytest.mark.parametrize("decode_mode", ["default", "dark"])
+def test_flip_tta_on_given_maps_matches_jax(flip_shift, decode_mode):
+    """The port's default decode is the single-pass one: the JAX side's
+    fused decode is its reference."""
     maps = [_peaked((4, 17, 16, 8), 20), _peaked((4, 17, 16, 8), 21)]
     frames = np.random.default_rng(0).uniform(0, 1, (4, 96, 80, 3)).astype(np.float32)
-    kw = dict(input_size=INPUT, flip_test=True, flip_shift=flip_shift, decode_mode=decode_mode,
-              use_fused_decode=fused)
-    ref = JEstimator(_TwoMaps(maps), {}, **kw).predict_batch(frames, BOXES)
+    kw = dict(input_size=INPUT, flip_test=True, flip_shift=flip_shift, decode_mode=decode_mode)
+    fused = decode_mode == "default"
+    ref = JEstimator(_TwoMaps(maps), {}, use_fused_decode=fused, **kw).predict_batch(frames,
+                                                                                       BOXES)
     out = TopDownEstimator(_TwoMaps(maps), device="cpu", **kw).predict_batch(frames, BOXES)
     for key in ("keypoints", "gaussians"):
         r, o = np.asarray(ref[key]), out[key].numpy()
@@ -230,10 +230,9 @@ def test_nview_pipeline_on_given_maps_matches_jax(flip):
 
 def test_build_pipeline_plumbs_the_options():
     pipe = build_pipeline(TINY, INPUT, (2, 4, 96, 80, 3), device="cpu", triangulation="nview",
-                          flip_test=True, flip_shift=False, decode_mode="dark",
-                          use_fused_decode=False)
+                          flip_test=True, flip_shift=False, decode_mode="dark")
     est = pipe.estimator
     assert pipe.triangulation == "nview" and est.flip_perm is not None
-    assert (est.flip_shift, est.decode_mode, est.use_fused_decode) == (False, "dark", False)
+    assert (est.flip_shift, est.decode_mode) == (False, "dark")
     out = pipe.run(np.random.default_rng(2).integers(0, 256, (2, 4, 96, 80, 3), dtype=np.uint8))
     assert out["kpts_3d"].shape == (2, 17, 3) and out["kpts_2d"].shape == (2, 17, 3, 4)

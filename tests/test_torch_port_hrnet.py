@@ -1,9 +1,10 @@
 """The port's HRNet, loaded through the flax converter, against flax HRNet in f32.
 
 Held at 1e-4 (the converters' tolerance): both run the same convs and
-BatchNorm arithmetic in f32 and differ in summation order only.  With
-``fused_stage1`` set to the port's plain chain, stage 1 runs BN-folded,
-which reorders its f32 arithmetic; the same 1e-4 holds.
+BatchNorm arithmetic in f32 and differ in summation order only.  With the
+kernel rule (`runs_kernels`) patched to hold in f32, stage 1 runs BN-folded
+through the stage-1 kernel's plain chain, which reorders its f32
+arithmetic; the same 1e-4 holds.
 """
 
 import jax
@@ -15,8 +16,8 @@ import torch
 from multi_camera_3d_pose_estimation_tpu.models.hrnet import HRNet as JHRNet
 from multi_camera_3d_pose_estimation_tpu_torch.models.convert import (hrnet_state_dict_from_flax,
                                                                      load_hrnet_from_flax)
+from multi_camera_3d_pose_estimation_tpu_torch.models import hrnet as port_hrnet
 from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNet
-from multi_camera_3d_pose_estimation_tpu_torch.ops.bottleneck import make_fused_stage1
 
 from tests._torch_port_util import random_variables
 
@@ -37,12 +38,13 @@ def _port(v):
 
 
 @pytest.mark.parametrize("stage1", ["modules", "plain_chain"])
-def test_hrnet_matches_flax_f32(tiny, stage1):
+def test_hrnet_matches_flax_f32(tiny, stage1, monkeypatch):
     v, x, ref = tiny
     model = _port(v)
-    fn = make_fused_stage1(model) if stage1 == "plain_chain" else None
+    if stage1 == "plain_chain":
+        monkeypatch.setattr(port_hrnet, "runs_kernels", lambda *a, **k: True)
     with torch.no_grad():
-        out = model(torch.from_numpy(x).permute(0, 3, 1, 2), fused_stage1=fn)
+        out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert out.dtype == torch.float32 and out.shape == ref.shape == (2, 17, 16, 8)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
 

@@ -25,7 +25,9 @@ from multi_camera_3d_pose_estimation_tpu.models import HRNet as JHRNet
 from multi_camera_3d_pose_estimation_tpu.models import TopDownEstimator as JEstimator
 from multi_camera_3d_pose_estimation_tpu.parallel import ShardedPosePipeline as JPipeline
 from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline, synthetic_rig
-from multi_camera_3d_pose_estimation_tpu_torch.models import HRNet, TopDownEstimator
+from multi_camera_3d_pose_estimation_tpu_torch.models import HRNet, TopDownEstimator, topdown
+from multi_camera_3d_pose_estimation_tpu_torch.ops.heatmap_decode import heatmap_argmax_decode
+from multi_camera_3d_pose_estimation_tpu_torch.ops.moments import heatmap_moments
 from multi_camera_3d_pose_estimation_tpu_torch.parallel import ShardedPosePipeline
 
 from tests._torch_port_util import random_variables
@@ -76,8 +78,9 @@ def test_model_heatmaps_match_bf16(jax_pipe, frames):
     model = port.estimator.model
     x = torch.from_numpy(np.array(crops.astype(jnp.float32))).to(torch.bfloat16)
     with torch.no_grad():
-        plain = model(x.permute(0, 3, 1, 2))
-        fused = model(x.permute(0, 3, 1, 2), fused_stage1=port.estimator.fused_stage1)
+        fused = model(x.permute(0, 3, 1, 2))  # stage 1 BN-folded (`runs_kernels`)
+    with torch.enable_grad():  # autograd on: the plain path, stage 1's modules
+        plain = model(x.permute(0, 3, 1, 2)).detach()
     scale = np.abs(ref).max()
     for out in (plain, fused):
         assert out.dtype == torch.float32 and out.shape == ref.shape == (8, 17, 16, 8)
@@ -94,7 +97,7 @@ class _FixedHeatmaps:
     def apply(self, variables, crops, **kw):  # the JAX side's call
         return jnp.asarray(np.moveaxis(self.heat, 1, -1))
 
-    def __call__(self, crops, fused_stage1=None):  # the port's call
+    def __call__(self, crops):  # the port's call
         return torch.from_numpy(self.heat)
 
 
@@ -118,17 +121,20 @@ def _peaked_heatmaps(rig, rng):
     return heat.reshape(T * C, 17, 16, 8), X.reshape(T, 17, 3)
 
 
-@pytest.mark.parametrize("fused_decode", [False, True])
-def test_same_heatmaps_give_same_outputs(jax_pipe, frames, fused_decode):
-    """Layer 2: the decode, gate, pushforward and triangulation, exactly."""
+@pytest.mark.parametrize("decode_mode", ["dark", "default"])
+def test_same_heatmaps_give_same_outputs(jax_pipe, frames, decode_mode):
+    """Layer 2: the decode, gate, pushforward and triangulation, exactly:
+    the default decode (the port's single-pass decode against the JAX
+    package's fused decode) and DARK."""
     _, variables, _ = jax_pipe
     rig = _converging_rig()
     heat, X = _peaked_heatmaps(rig, np.random.default_rng(5))
     fake = _FixedHeatmaps(heat)
-    ref = JPipeline(JEstimator(fake, variables, input_size=INPUT,
-                               use_fused_decode=fused_decode), rig).run(frames)
+    fused_decode = decode_mode == "default"
+    ref = JPipeline(JEstimator(fake, variables, input_size=INPUT, use_fused_decode=fused_decode,
+                               decode_mode=decode_mode), rig).run(frames)
     model = HRNet(17, TINY, device="cpu")
-    est = TopDownEstimator(model, INPUT, use_fused_decode=fused_decode, device="cpu")
+    est = TopDownEstimator(model, INPUT, decode_mode=decode_mode, device="cpu")
     est.model = fake
     out = ShardedPosePipeline(est, rig, device="cpu").run(frames)
     for key in ("kpts_2d", "heatmaps_2d", "kpts_3d"):
@@ -151,7 +157,43 @@ def test_same_heatmaps_give_same_outputs(jax_pipe, frames, fused_decode):
 
 def test_predict_batch_matches_jax(jax_pipe, frames):
     """`TopDownEstimator.predict_batch` (f32 frames, given boxes) on the same
-    heatmaps: keypoints and Gaussians in image pixels to 1e-4."""
+    heatmaps: keypoints and Gaussians in image pixels to 1e-4, with DARK and
+    with the default decode (the port's single-pass decode, whose
+    covariances are held as in layer 2, the largest box's crop scale 0.32)."""
+    _, variables, _ = jax_pipe
+    heat, _ = _peaked_heatmaps(_converging_rig(), np.random.default_rng(6))
+    boxes = np.float32([[0, 0, 80, 96], [8, 4, 72, 92], [-10, 20, 60, 110], [30, 0, 95, 70],
+                        [0, 0, 80, 96], [5, 5, 50, 90], [20, 30, 70, 96], [0, 10, 80, 80]])
+    fake = _FixedHeatmaps(heat)
+    cov_atol = 8 * float(np.finfo(np.float32).eps) * 15 ** 2 * (4.0 / 0.32) ** 2
+    for mode in ("dark", "default"):
+        ref = JEstimator(fake, variables, input_size=INPUT, decode_mode=mode).predict_batch(
+            frames.reshape(-1, 96, 80, 3), boxes)
+        est = TopDownEstimator(HRNet(17, TINY, device="cpu"), INPUT, decode_mode=mode,
+                               device="cpu")
+        est.model = fake
+        out = est.predict_batch(frames.reshape(-1, 96, 80, 3), boxes)
+        for key in ("keypoints", "gaussians"):
+            o, r = out[key].numpy(), np.asarray(ref[key])
+            if key == "gaussians" and mode == "default":
+                np.testing.assert_allclose(o[..., 2:], r[..., 2:], rtol=0, atol=cov_atol)
+                o, r = o[..., :2], r[..., :2]
+            np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-4, err_msg=f"{mode} {key}")
+
+
+def test_two_pass_default_decode_matches_jax_to_1e4(jax_pipe, frames, monkeypatch):
+    """The default decode's two-pass plain form (`heatmap_argmax_decode` +
+    `heatmap_moments`, centred moments), put in place of the single-pass
+    decode, against the JAX package's default (two-pass) decode: keypoints
+    and Gaussians, covariances included, to 1e-4 in image pixels.  The port's
+    default decode departs from it only by the raw-moment cancellation of
+    `test_predict_batch_matches_jax`."""
+
+    def two_pass(heat, threshold=0.01):
+        xy, score = heatmap_argmax_decode(heat)
+        return heatmap_moments(heat, threshold=threshold), xy, score
+
+    monkeypatch.setattr(topdown, "fused_heatmap_decode", two_pass)
     _, variables, _ = jax_pipe
     heat, _ = _peaked_heatmaps(_converging_rig(), np.random.default_rng(6))
     boxes = np.float32([[0, 0, 80, 96], [8, 4, 72, 92], [-10, 20, 60, 110], [30, 0, 95, 70],

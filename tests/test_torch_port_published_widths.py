@@ -4,11 +4,13 @@ the JAX package at their published widths (depth cut, small input).
 - HRNet with W48's widths and stem (48, 96, 192, 384; 64), one module per
   stage, in float32 at 1e-4 (the converters' tolerance), stage 1 as the
   Bottleneck modules and as the BN-folded plain chain that the stage-1
-  kernel computes on the card (`make_fused_stage1`).
+  kernel computes on the card (`HRNet.stage1_blocks`, reached by patching
+  the kernel rule, `runs_kernels`, to hold in f32).
 - Swin with Swin-L's embed and heads (192; 6, 12, 24, 48: head dim 32) at
-  depths (2, 2, 2, 2), input (w, h) = (64, 96): float32 at 1e-4 in every
-  attention mode, and bf16 ``"block"`` (the port's swin_gemm and
-  window-attention kernels as their plain versions) against the JAX
+  depths (2, 2, 2, 2), input (w, h) = (64, 96): float32 at 1e-4 on the
+  plain path and on the block kernels' path (the rule patched as above),
+  and bf16 inference (the port's swin_gemm and window-attention kernels as
+  their plain versions) against the JAX
   package's Pallas ``"block"`` in interpret mode at 2e-2 of the maps'
   largest value, as ``tests/test_torch_port_swin_model.py`` holds Swin-B's.
 - The converters' keys and shapes at the full W48 and Swin-L trees (on
@@ -25,14 +27,15 @@ import torch
 from multi_camera_3d_pose_estimation_tpu.models import registry as jreg
 from multi_camera_3d_pose_estimation_tpu.models.hrnet import HRNet as JHRNet
 from multi_camera_3d_pose_estimation_tpu.models.swin import SwinPose as JSwinPose
+from multi_camera_3d_pose_estimation_tpu_torch.models import hrnet as port_hrnet
 from multi_camera_3d_pose_estimation_tpu_torch.models import registry
+from multi_camera_3d_pose_estimation_tpu_torch.models import swin as port_swin
 from multi_camera_3d_pose_estimation_tpu_torch.models.convert import (hrnet_state_dict_from_flax,
                                                                      load_hrnet_from_flax,
                                                                      load_swin_from_flax,
                                                                      swin_state_dict_from_flax)
 from multi_camera_3d_pose_estimation_tpu_torch.models.hrnet import HRNET_W48, HRNet
 from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_L, SwinPose
-from multi_camera_3d_pose_estimation_tpu_torch.ops.bottleneck import make_fused_stage1
 
 from tests._torch_port_util import random_variables
 
@@ -51,12 +54,13 @@ def w48():
 
 
 @pytest.mark.parametrize("stage1", ["modules", "plain_chain"])
-def test_hrnet_w48_widths_match_flax_f32(w48, stage1):
+def test_hrnet_w48_widths_match_flax_f32(w48, stage1, monkeypatch):
     v, x, ref = w48
     model = load_hrnet_from_flax(HRNet(17, W48_CUT, dtype=torch.float32, device="cpu"), v).eval()
-    fn = make_fused_stage1(model) if stage1 == "plain_chain" else None
+    if stage1 == "plain_chain":
+        monkeypatch.setattr(port_hrnet, "runs_kernels", lambda *a, **k: True)
     with torch.no_grad():
-        out = model(torch.from_numpy(x).permute(0, 3, 1, 2), fused_stage1=fn)
+        out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert out.dtype == torch.float32 and out.shape == ref.shape == (2, 17, 16, 16)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
 
@@ -72,16 +76,18 @@ def swin_l():
     return v, x, np.moveaxis(np.asarray(ref), -1, 1)
 
 
-def _swin_port(v, mode, dtype=torch.float32):
-    model = SwinPose(17, SWIN_L_CUT, dtype=dtype, use_pallas_attention=mode, device="cpu")
+def _swin_port(v, dtype=torch.float32):
+    model = SwinPose(17, SWIN_L_CUT, dtype=dtype, device="cpu")
     return load_swin_from_flax(model, v).eval()
 
 
-@pytest.mark.parametrize("mode", ["block", "packed", "loop", False])
-def test_swin_l_widths_match_flax_f32(swin_l, mode):
+@pytest.mark.parametrize("mode", ["block", False])
+def test_swin_l_widths_match_flax_f32(swin_l, mode, monkeypatch):
     v, x, ref = swin_l
+    if mode == "block":  # the block kernels' plain versions, in f32
+        monkeypatch.setattr(port_swin, "runs_kernels", lambda *a, **k: True)
     with torch.no_grad():
-        out = _swin_port(v, mode)(torch.from_numpy(x))
+        out = _swin_port(v)(torch.from_numpy(x))
     assert out.dtype == torch.float32 and out.shape == ref.shape == (2, 17, 24, 16)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
 
@@ -92,7 +98,7 @@ def test_swin_l_widths_bf16_block_match_pallas_block(swin_l):
         v, jnp.asarray(x))
     ref = np.moveaxis(np.asarray(ref), -1, 1)
     with torch.no_grad():
-        out = _swin_port(v, "block", torch.bfloat16)(torch.from_numpy(x))
+        out = _swin_port(v, torch.bfloat16)(torch.from_numpy(x))
     err = np.abs(out.numpy() - ref).max() / np.abs(ref).max()
     print("bf16 block heatmap error / scale:", err)
     assert err <= 2e-2

@@ -34,6 +34,7 @@ from multi_camera_3d_pose_estimation_tpu.models import swin as jswin
 from multi_camera_3d_pose_estimation_tpu.models.swin import SwinBlock as JSwinBlock
 from multi_camera_3d_pose_estimation_tpu.models.swin import SwinPose as JSwinPose
 from multi_camera_3d_pose_estimation_tpu.ops.pallas import swin_block as jsb
+from multi_camera_3d_pose_estimation_tpu_torch.models import swin as port_swin
 from multi_camera_3d_pose_estimation_tpu_torch.models.convert import load_swin_from_flax
 from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SwinBlock, SwinPose
 from multi_camera_3d_pose_estimation_tpu_torch.ops import swin_block as sb
@@ -243,9 +244,11 @@ def _spy(monkeypatch, module, name, calls):
 def test_model_env_picks_the_same_fixed_stages(small_model, monkeypatch, env, fixed):
     """The spies record the channel width of each fixed stage (and of each
     chained block); the heatmaps match the JAX model's, f32, both through
-    their block kernels (JAX in interpret mode)."""
+    their block kernels (JAX in interpret mode; the port's by the kernel
+    rule, `runs_kernels`, patched to hold in f32)."""
     v, x, port = small_model
     monkeypatch.setenv("MC3D_SWIN_FIXED", env)
+    monkeypatch.setattr(port_swin, "runs_kernels", lambda *a, **k: True)
     calls = {k: [] for k in ("jax_fixed", "jax_chained", "fixed", "chained")}
     _spy(monkeypatch, jsb, "fused_swin_stage_fixed", calls["jax_fixed"])
     _spy(monkeypatch, jsb, "fused_swin_block", calls["jax_chained"])

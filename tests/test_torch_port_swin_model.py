@@ -4,11 +4,13 @@ A small config with window 7, head dim 32 and both stages padded and
 shifted: embed 64, depths (2, 2), heads (2, 4), input (w, h) = (64, 96)
 (stage maps 24x16 -> 28x21 and 12x8 -> 14x14 after padding).
 
-- float32, every attention choice ("block", "packed", "loop", False)
-  against the flax einsum path at 1e-4 (the converters' tolerance: the
-  same arithmetic, sums in another order);
-- bf16, the port's default "block" against flax ``use_pallas_attention=
-  "block"`` (Pallas interpret mode) at 2e-2 of the maps' largest value, as
+- float32, the plain path and the block kernels' plain versions (reached
+  by patching the kernel rule, `runs_kernels`, to hold in f32) against the
+  flax einsum path at 1e-4 (the converters' tolerance: the same
+  arithmetic, sums in another order);
+- bf16 inference, the block kernels' path, against flax
+  ``use_pallas_attention="block"`` (Pallas interpret mode) at 2e-2 of the
+  maps' largest value, as
   the JAX package holds its own block path against its einsum path: bf16
   roundings in other places compound through 4 blocks and the head;
 - the converter's keys and shapes at Swin-B width, and its strictness.
@@ -23,6 +25,7 @@ import torch
 from multi_camera_3d_pose_estimation_tpu.models.swin import SWIN_B as J_SWIN_B
 from multi_camera_3d_pose_estimation_tpu.models.swin import SwinPose as JSwinPose
 from multi_camera_3d_pose_estimation_tpu_torch.models import registry
+from multi_camera_3d_pose_estimation_tpu_torch.models import swin as port_swin
 from multi_camera_3d_pose_estimation_tpu_torch.models.convert import (load_swin_from_flax,
                                                                      swin_state_dict_from_flax)
 from multi_camera_3d_pose_estimation_tpu_torch.models.swin import SWIN_B, SwinPose
@@ -43,16 +46,18 @@ def small():
     return v, x, np.moveaxis(np.asarray(ref), -1, 1)
 
 
-def _port(v, mode, dtype=torch.float32):
-    model = SwinPose(17, SMALL, dtype=dtype, use_pallas_attention=mode, device="cpu")
+def _port(v, dtype=torch.float32):
+    model = SwinPose(17, SMALL, dtype=dtype, device="cpu")
     return load_swin_from_flax(model, v).eval()
 
 
-@pytest.mark.parametrize("mode", ["block", "packed", "loop", False])
-def test_swinpose_matches_flax_f32(small, mode):
+@pytest.mark.parametrize("mode", ["block", False])
+def test_swinpose_matches_flax_f32(small, mode, monkeypatch):
     v, x, ref = small
+    if mode == "block":  # the block kernels' plain versions, in f32
+        monkeypatch.setattr(port_swin, "runs_kernels", lambda *a, **k: True)
     with torch.no_grad():
-        out = _port(v, mode)(torch.from_numpy(x))
+        out = _port(v)(torch.from_numpy(x))
     assert out.dtype == torch.float32 and out.shape == ref.shape == (2, 17, 24, 16)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
 
@@ -63,7 +68,7 @@ def test_swinpose_bf16_block_matches_pallas_block(small):
         v, jnp.asarray(x))
     ref = np.moveaxis(np.asarray(ref), -1, 1)
     with torch.no_grad():
-        out = _port(v, "block", torch.bfloat16)(torch.from_numpy(x))
+        out = _port(v, torch.bfloat16)(torch.from_numpy(x))
     assert out.dtype == torch.float32
     err = np.abs(out.numpy() - ref).max() / np.abs(ref).max()
     print("bf16 block heatmap error / scale:", err)
@@ -88,17 +93,17 @@ def test_converter_is_strict(small):
     missing = jax.tree_util.tree_map(lambda a: a, v)
     del missing["params"]["backbone"]["stage_1_block_1"]["ffn_fc2"]
     with pytest.raises(KeyError, match="missing"):
-        _port(missing, "block")
+        _port(missing)
     extra = jax.tree_util.tree_map(lambda a: a, v)
     extra["params"]["backbone"]["stage_1_block_2"] = extra["params"]["backbone"][
         "stage_1_block_1"]
     with pytest.raises(KeyError, match="leftover"):
-        _port(extra, "block")
+        _port(extra)
     wrong = jax.tree_util.tree_map(lambda a: a, v)
     wrong["params"]["backbone"]["stage_0_block_0"]["attn"]["bias_table"] = np.zeros(
         (169, 3), np.float32)
     with pytest.raises(ValueError, match="bias_table"):
-        _port(wrong, "block")
+        _port(wrong)
     unknown = jax.tree_util.tree_map(lambda a: a, v)
     unknown["params"]["final_layer"]["gain"] = np.ones(17, np.float32)
     with pytest.raises(KeyError, match="unmapped"):

@@ -59,7 +59,7 @@ def test_model_heatmaps_match_bf16(jax_pipe, frames):
     crops, _, _ = preprocess_crops(flat, boxes, INPUT)
     ref = np.moveaxis(np.asarray(jax.jit(pipe.estimator.model.apply)(variables, crops)), -1, 1)
     port = build_pipeline(SMALL, INPUT, SHAPE, device="cpu", variables=variables, family="swin")
-    assert port.estimator.family == "swin" and port.estimator.fused_stage1 is None
+    assert port.estimator.family == "swin"
     x = torch.from_numpy(np.array(crops.astype(jnp.float32))).to(torch.bfloat16)
     with torch.no_grad():
         out = port.estimator.model(x)
@@ -84,10 +84,11 @@ class _FixedHeatmaps:
         return torch.from_numpy(self.heat)
 
 
-@pytest.mark.parametrize("fused_decode", [False, True])
-def test_same_heatmaps_give_same_outputs(jax_pipe, frames, fused_decode):
+@pytest.mark.parametrize("decode_mode", ["dark", "default"])
+def test_same_heatmaps_give_same_outputs(jax_pipe, frames, decode_mode):
     """Layer 2: the Swin estimator's decode, gate, pushforward and
-    triangulation, given the same heatmaps."""
+    triangulation, given the same heatmaps: the default decode (the port's
+    single-pass decode against the JAX package's fused decode) and DARK."""
     _, variables, rig = jax_pipe
     rng = np.random.default_rng(5)
     ys, xs = np.mgrid[0:24, 0:16]
@@ -97,10 +98,11 @@ def test_same_heatmaps_give_same_outputs(jax_pipe, frames, fused_decode):
                                             + (ys - peaks[..., 1:2, None]) ** 2) / 2.0))
     heat = heat.astype(np.float32)
     fake = _FixedHeatmaps(heat)
-    ref = JPipeline(JEstimator(fake, variables, input_size=INPUT,
-                               use_fused_decode=fused_decode), rig).run(frames)
-    est = TopDownEstimator(SwinPose(17, SMALL, device="cpu"), INPUT,
-                           use_fused_decode=fused_decode, device="cpu")
+    fused_decode = decode_mode == "default"
+    ref = JPipeline(JEstimator(fake, variables, input_size=INPUT, use_fused_decode=fused_decode,
+                               decode_mode=decode_mode), rig).run(frames)
+    est = TopDownEstimator(SwinPose(17, SMALL, device="cpu"), INPUT, decode_mode=decode_mode,
+                           device="cpu")
     est.model = fake
     out = ShardedPosePipeline(est, rig, device="cpu").run(frames)
     assert fake.crops == (8, 96, 64, 3)
@@ -135,8 +137,3 @@ def test_pipeline_end_to_end_matches_jax(jax_pipe, frames):
     assert both.sum() >= 5
     np.testing.assert_allclose(out["kpts_3d"][both], ref["kpts_3d"][both], rtol=1e-3, atol=1e-2)
 
-
-def test_swin_estimator_refuses_fused_stage1():
-    with pytest.raises(ValueError, match="HRNet"):
-        TopDownEstimator(SwinPose(17, SMALL, device="cpu"), INPUT, use_fused_stage1=True,
-                         device="cpu")

@@ -28,8 +28,7 @@ TINY = {"widths": (8, 16, 32, 64), "modules": (1, 1, 1, 1), "stem": 16}
 
 
 def _block_params():
-    model = HRNet(17, TINY, torch.float32, "cpu")
-    return bn.make_fused_stage1(model).blocks[0]
+    return HRNet(17, TINY, torch.float32, "cpu").stage1_blocks()[0]
 
 
 def _calls():
@@ -93,22 +92,32 @@ def test_wrapper_runs_without_autograd(name):
     call(lambda t: t)  # nothing requires grad
 
 
-def test_kernel_paths_refuse_training():
-    """A model on a kernel path in train mode raises rather than learning
-    nothing upstream of the kernel: HRNet with the Bottleneck chain in eval
-    mode under autograd, Swin on the block kernels."""
-    x = torch.randn(1, 3, 64, 32)
-    hr = HRNet(17, TINY, torch.float32, "cpu")
-    with pytest.raises(RuntimeError, match="bottleneck kernel"):
-        hr(x, fused_stage1=bn.make_fused_stage1(hr))
-    hr.train()  # in train mode the Bottleneck modules run, as in the JAX package
-    hr(x, fused_stage1=bn.make_fused_stage1(hr)).sum().backward()
-    assert hr.ConvBN_0.Conv_0.weight.grad is not None
+def test_kernel_paths_refuse_training(monkeypatch):
+    """A model never hands autograd to a kernel: under autograd (eval mode,
+    the weights requiring grad) and in train mode, bf16 HRNet and Swin take
+    their plain paths (`runs_kernels`), no kernel wrapper is called and the
+    gradient reaches the stem; the wrappers themselves refuse (above)."""
+    called = []
+
+    def refuse(name):
+        def fn(*a, **k):
+            called.append(name)
+            raise AssertionError(f"{name} called under autograd")
+        return fn
+
+    monkeypatch.setattr(bn, "fused_bottleneck_block", refuse("bottleneck"))
+    monkeypatch.setattr(sb, "fused_swin_block", refuse("swin block"))
+    monkeypatch.setattr(be, "bn_epilogue", refuse("epilogue"))
     cfg = {"embed": 24, "depths": (1, 1), "heads": (2, 4), "window": 4, "mlp_ratio": 2,
            "deconv": (16,)}
-    swin = SwinPose(17, cfg, torch.float32, "block", "cpu").train()
-    with pytest.raises(RuntimeError, match="swin_gemm kernel"):
-        swin(torch.randn(1, 64, 64, 3))
-    plain = SwinPose(17, cfg, torch.float32, False, "cpu").train()
-    plain(torch.randn(2, 64, 64, 3)).sum().backward()
-    assert plain.backbone.patch_embed_projection.weight.grad is not None
+    hr = HRNet(17, TINY, torch.bfloat16, "cpu")
+    swin = SwinPose(17, cfg, torch.bfloat16, "cpu")
+    for train in (False, True):
+        for model, x, stem in ((hr, torch.randn(2, 3, 64, 32), hr.ConvBN_0.Conv_0),
+                               (swin, torch.randn(2, 64, 64, 3),
+                                swin.backbone.patch_embed_projection)):
+            model.train(train)
+            model.zero_grad()
+            model(x).sum().backward()
+            assert stem.weight.grad is not None and torch.isfinite(stem.weight.grad).all()
+    assert called == []

@@ -132,7 +132,7 @@ CASES = {  # name: (flax module, port module, family, input (B, H, W, 3), NHWC i
                         lambda: HRNet(17, HR_TINY, T64, "cpu"), "hrnet",
                         (2, 64, 32, 3), False),
     "swin_test_swin_128": (lambda: JSwinPose(num_joints=17, cfg=SWIN, dtype=F64),
-                           lambda: SwinPose(17, SWIN, T64, False, "cpu"), "swin",
+                           lambda: SwinPose(17, SWIN, T64, "cpu"), "swin",
                            (2, 64, 64, 3), True),
     "rtmpose_small": (lambda: JRTMPose(num_joints=17, input_size=(64, 96), cfg=RTM, dtype=F64),
                       lambda: RTMPose(17, (64, 96), cfg=RTM, dtype=T64, device="cpu"), "rtmpose",
