@@ -262,7 +262,15 @@ Phases (each synchronises the card; any failure exits non-zero):
    heatmaps equal to the same forward forced plain; the 279 calls replayed,
    kernel and plain form, timed beside their bytes bound, per distinct
    shape too, the host's time per launch, and the forward both ways;
-28. one JSON line with every kernel (the phase-25 rows named ``*_w48`` and
+28. no host wait inside the block pipeline, at the benchmark cells' blocks
+   (2 cameras of 640x480, 256 frames on HRNet-W32, 128 on Swin-B; phases
+   3's and 6's estimators; full-frame boxes), top-2 and n-view: after a
+   warm-up block, two blocks through ``ShardedPosePipeline.run`` and the
+   estimate loop's ``_fetch`` under ``torch.cuda.set_sync_debug_mode
+   ("error")`` (any host sync raises), their fetched outputs checked after
+   the copies' event; the host's ms per block to launch them beside the
+   wall ms per block to finish them;
+29. one JSON line with every kernel (the phase-25 rows named ``*_w48`` and
    ``*_swin_l``; the others with their launches on phases 15-17 and 19-26;
    phase 27's row last, its ``launches`` phase 3's, with phase 6's, 9's
    and 12's beside), the script's wall time, the card's line, and the
@@ -4269,6 +4277,53 @@ def run_accuracy_phase(dev, budget: dict, workdir: str) -> dict:
     return res
 
 
+# The benchmark cells' blocks (frames of 2 cameras of 640x480), phase 28.
+CELL_BLOCKS = {"w32_vga_c2_b256": 256, "swinb_vga_c2_b128": 128}
+VGA = (480, 640)  # (H, W)
+
+
+def run_no_host_wait_phase(dev, gen, estimators: dict) -> dict:
+    """Phase 28: each benchmark cell's block (`CELL_BLOCKS`, full-frame
+    boxes) through `ShardedPosePipeline.run` and the estimate loop's
+    `_fetch` on the cell's estimator, top-2 and n-view: a warm-up block,
+    then two blocks under ``torch.cuda.set_sync_debug_mode("error")``, so
+    that any host sync raises; the fetched outputs checked once the copies'
+    events have completed.  Returns, per cell and triangulation, the host's
+    ms per block to launch both blocks and the wall ms per block until the
+    card has finished them."""
+    import torch
+    from multi_camera_3d_pose_estimation_tpu_torch.cli.estimate import _fetch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import synthetic_rig
+    from multi_camera_3d_pose_estimation_tpu_torch.parallel import ShardedPosePipeline
+
+    rows = {}
+    for cell, T_ in CELL_BLOCKS.items():
+        blocks = [torch.randint(0, 256, (T_, C) + VGA + (3,), generator=gen,
+                                dtype=torch.uint8).to(dev) for _ in range(2)]
+        for triangulation in ("top2", "nview"):
+            pipe = ShardedPosePipeline(estimators[cell], synthetic_rig(C, *VGA),
+                                       triangulation=triangulation, device=dev)
+            _fetch(pipe.run(blocks[0]), T_)  # warm-up: the frame size's box
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fetched = [_fetch(pipe.run(b), T_) for b in blocks]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            host_ms = (time.perf_counter() - t0) * 1e3 / len(blocks)
+            for _, event in fetched:
+                event.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / len(blocks)
+            for host, _ in fetched:
+                check_outputs(host, pipe, T_)
+            rows[f"{cell}.{triangulation}"] = {"host_ms_per_block": host_ms,
+                                               "wall_ms_per_block": wall_ms}
+            log(f"{cell} {triangulation}: run + _fetch with no host sync; host "
+                f"{host_ms:.3f} ms per block to launch, wall {wall_ms:.3f} ms per block")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4401,7 +4456,13 @@ def main() -> int:
     epilogue_rows = run_bn_epilogue_phase(dev, card, launches)
     log(f"phase 27 took {time.perf_counter() - t27:.1f} s")
 
-    # 28. Results.
+    # 28. No host wait in run and _fetch at the benchmark cells' blocks.
+    t28 = time.perf_counter()
+    no_wait = run_no_host_wait_phase(dev, gen, {"w32_vga_c2_b256": pipe.estimator,
+                                                "swinb_vga_c2_b128": swin["pipe"].estimator})
+    log(f"phase 28 took {time.perf_counter() - t28:.1f} s")
+
+    # 29. Results.
     hrnet_rows[0]["flip_path_launches"] = nview["launches"]["bottleneck"]
     hrnet_rows[1]["flip_path_launches"] = nview["launches"]["heatmap_decode"]
     epilogue_rows[0]["flip_path_launches"] = nview["launches"]["bn_epilogue"]
@@ -4465,6 +4526,7 @@ def main() -> int:
                       "published_widths": {k: v for k, v in published.items()
                                            if k not in ("launches", "rows")},
                       "accuracy": {k: v for k, v in accuracy.items() if k != "launches"},
+                      "no_host_wait": no_wait,
                       "wall_s": wall}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

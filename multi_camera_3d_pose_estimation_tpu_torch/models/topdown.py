@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.crop_resample import (IMAGENET_MEAN, IMAGENET_STD, center_scale_from_bbox,
-                                 crop_frames, crop_resample)
+                                 crop_frames, crop_resample, full_frame_boxes)
 from ..ops.fused_decode import fused_heatmap_decode
 from ..ops.heatmap_decode import heatmap_dark_decode
 from ..ops.moments import heatmap_moments
@@ -101,7 +101,7 @@ class TopDownEstimator:
             frames = frames.float() / 255.0
         B, H, W = frames.shape[:3]
         if bboxes is None:
-            bboxes = torch.tensor([0.0, 0.0, float(W), float(H)], device=self.device).expand(B, 4)
+            bboxes = full_frame_boxes((B,), H, W, self.device)
         bboxes = torch.as_tensor(bboxes, dtype=torch.float32, device=self.device)
         return _predict(self, frames, bboxes)
 

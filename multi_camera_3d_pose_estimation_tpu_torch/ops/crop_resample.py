@@ -28,9 +28,10 @@ import numpy as np
 import torch
 
 from .. import _native
+from .device_tables import device_table
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "center_scale_from_bbox", "crop_and_normalize",
-           "crop_frames", "crop_resample"]
+           "crop_frames", "crop_resample", "full_frame_boxes"]
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -48,6 +49,18 @@ def center_scale_from_bbox(bboxes: torch.Tensor, aspect_ratio: float, padding: f
     w_fit = torch.maximum(w, h * aspect_ratio)
     h_fit = torch.maximum(h, w / aspect_ratio)
     return center, torch.stack([w_fit, h_fit], dim=-1)
+
+
+def _full_frame(width: int, height: int) -> np.ndarray:
+    return np.array([0.0, 0.0, width, height])
+
+
+def full_frame_boxes(shape, height: int, width: int, device) -> torch.Tensor:
+    """The f32 box (0, 0, width, height) expanded to ``(*shape, 4)``: made
+    once per device and frame size (`device_table`), so no call copies it
+    from the host or waits on the card.  A read-only view."""
+    box = device_table(_full_frame, int(width), int(height), device=device, dtype=torch.float32)
+    return box.expand(*shape, 4)
 
 
 def _weight_mat(in_size: int, out_size: int, scale: torch.Tensor,

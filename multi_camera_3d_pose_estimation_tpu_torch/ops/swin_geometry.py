@@ -19,8 +19,8 @@ regrouping of those rows: shifted-window position q holds fixed-order row
 which is the row table the window attention kernel reads through.
 
 Tables are numpy, computed once per geometry (`functools.lru_cache`);
-`device_table` keeps one copy per device so the forward pass does no
-host-to-device copy after the first.
+`device_table` (`ops.device_tables`) keeps one copy per device so the
+forward pass does no host-to-device copy after the first.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from .device_tables import device_table
 
 __all__ = [
     "rel_position_index",
@@ -241,21 +243,3 @@ def fixed_reverse(xw: torch.Tensor, B: int, H: int, W: int, win: int) -> torch.T
     if P != Hp * Wp:
         xw = xw.reshape(B, P, C)[:, :Hp * Wp]
     return window_reverse(xw.reshape(-1, C), B, H, W, win, 0)
-
-
-_DEVICE_TABLES: dict = {}
-
-
-def device_table(fn, *args, device, dtype=None) -> torch.Tensor:
-    """``torch.as_tensor(fn(*args))`` on ``device``, made once per key.
-
-    Made with inference mode off, so that a table first asked for under
-    ``torch.inference_mode()`` (the pipeline) can later index tensors that
-    autograd tracks (the model's parameters)."""
-    key = (fn.__name__, args, str(device), dtype)
-    t = _DEVICE_TABLES.get(key)
-    if t is None:
-        with torch.inference_mode(False):
-            t = torch.as_tensor(np.ascontiguousarray(fn(*args)), dtype=dtype, device=device)
-        _DEVICE_TABLES[key] = t
-    return t

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device_tables import device_table
 from .geometry import projection_matrix
 from .undistort import undistort_points
 
@@ -33,11 +34,17 @@ def _dlt_system(pts_a, pts_b, P_a, P_b):
     return torch.cat([rows(pts_a, P_a), rows(pts_b, P_b)], dim=-2)
 
 
+def _dlt_start() -> np.ndarray:
+    """The power iteration's start vector."""
+    return np.array([0.9, 0.5, 0.5, 0.5])
+
+
 def _smallest_eigvec_4x4(B: torch.Tensor, n_squarings: int = 12) -> torch.Tensor:
     """Eigenvector of the smallest eigenvalue of symmetric PSD (..., 4, 4).
 
     M = trace(B)·I − B, squared ``n_squarings`` times with max-abs
-    renormalisation, applied to the start v0 = (0.9, 0.5, 0.5, 0.5).
+    renormalisation, applied to the start v0 = (0.9, 0.5, 0.5, 0.5), which
+    stays on the device (`device_table`): no host copy, no wait on the card.
     """
     c = torch.diagonal(B, dim1=-2, dim2=-1).sum(-1)[..., None, None]
     M = c * torch.eye(4, dtype=B.dtype, device=B.device) - B
@@ -45,7 +52,7 @@ def _smallest_eigvec_4x4(B: torch.Tensor, n_squarings: int = 12) -> torch.Tensor
         M = torch.matmul(M, M)
         scale = M.abs().amax(dim=(-2, -1), keepdim=True)
         M = M / torch.clamp(scale, min=1e-30)
-    v0 = torch.tensor([0.9, 0.5, 0.5, 0.5], dtype=B.dtype, device=B.device)
+    v0 = device_table(_dlt_start, device=B.device, dtype=B.dtype)
     v = torch.matmul(M, v0)
     n = torch.sqrt(torch.clamp((v * v).sum(-1, keepdim=True), min=1e-30))
     return v / n

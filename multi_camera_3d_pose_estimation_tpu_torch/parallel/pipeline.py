@@ -28,6 +28,7 @@ import torch
 
 from ..models.detector import clip_boxes, decode_top1, decode_topk, select_consistent_boxes
 from ..models.topdown import _predict
+from ..ops.crop_resample import full_frame_boxes
 from ..ops.triangulation import triangulate_nview, triangulate_top2
 from ..refine.costs import likelihood_cost, smoothness_cost
 from ..refine.optimizer import RefineConfig, _clip_adam_step
@@ -88,13 +89,17 @@ class ShardedPosePipeline:
 
     def _full_frame(self, frames: torch.Tensor) -> torch.Tensor:
         T, C, H, W = frames.shape[:4]
-        return torch.tensor([0.0, 0.0, float(W), float(H)], device=self.device).expand(T, C, 4)
+        return full_frame_boxes((T, C), H, W, self.device)
 
     @torch.inference_mode()
     def run(self, frames, bboxes=None) -> dict:
         """frames (T, C, H, W, 3) uint8 or float, bboxes (T, C, 4) or None.
-        Spans (`utils.profiling.span`): ``mc3d.pipeline.run`` around the
-        call, ``mc3d.pipeline.detect`` around the detector inside it."""
+        With frames on the card and no boxes, no detector and no mesh, it
+        launches the block's work and returns without waiting on the card:
+        its constants are device tables (`ops.device_tables`), not host
+        copies.  Spans (`utils.profiling.span`): ``mc3d.pipeline.run``
+        around the call, ``mc3d.pipeline.detect`` around the detector
+        inside it."""
         with span("mc3d.pipeline.run"):
             frames = self._rows(frames)
             use_detector = bboxes is None and self.has_detector

@@ -532,6 +532,47 @@ def _record(owner, outs):
     owner.model = record
 
 
+SMALL_SWIN = ({"embed": 64, "depths": (2, 2), "heads": (2, 4), "window": 7, "mlp_ratio": 4,
+               "deconv": (32,)}, (64, 96))
+
+
+@pytest.mark.parametrize("family", ["hrnet", "swin"])
+def test_pipeline_run_and_fetch_take_no_host_sync(card, family):
+    """Once a block of its size has run, `ShardedPosePipeline.run` on
+    full-frame boxes (top-2 and n-view) and the estimate loop's `_fetch`
+    launch their work without any host sync
+    (``torch.cuda.set_sync_debug_mode("error")``), so the next block's copy
+    and launches overlap the card's work; what `_fetch` copies is the
+    block's outputs."""
+    import numpy as np
+
+    from multi_camera_3d_pose_estimation_tpu_torch.cli.estimate import _fetch
+    from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
+
+    cfg, input_size = TINY_HRNET if family == "hrnet" else SMALL_SWIN
+    shape = (4, 2, 96, 80, 3)
+    rng = np.random.default_rng(11)
+    blocks = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(card)
+              for _ in range(2)]
+    for triangulation in ("top2", "nview"):
+        pipe = build_pipeline(cfg, input_size, shape, device=card, family=family,
+                              triangulation=triangulation)
+        _fetch(pipe.run(blocks[0]), shape[0])  # warm-up: kernels, device tables
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fetched = [_fetch(pipe.run(b), shape[0]) for b in blocks]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for b, (host, event) in zip(blocks, fetched):
+            event.synchronize()
+            want = pipe.run(b)
+            assert torch.isfinite(want["kpts_3d"]).any(), triangulation
+            for k, v in want.items():
+                assert torch.equal(host[k].nan_to_num(7.0), v.cpu().nan_to_num(7.0)), \
+                    (k, triangulation)
+
+
 @pytest.mark.parametrize("select", ["top1", "consistent"])
 def test_detector_pipeline_matches_cpu(card, select):
     from multi_camera_3d_pose_estimation_tpu_torch.entry import build_pipeline
